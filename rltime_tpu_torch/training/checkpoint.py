@@ -1,0 +1,126 @@
+"""Checkpoint/resume (port of `training/checkpoint.py`).
+
+`torch.save` of {online model, target model, optimizer, PER-sampling
+generator, update counter} plus host-side counters, under
+`<result_dir>/checkpoints/<env_step>/state.pt`, the same directory
+layout as the JAX version's orbax checkpoints. Replay contents are
+optionally included. The best-checkpoint rule (`maybe_record_best`,
+`best.json`) is the JAX version's, unchanged.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import torch
+
+from rltime_tpu_torch.history.replay import ReplayState
+from rltime_tpu_torch.training.learner import TrainState
+
+_FILE = "state.pt"
+
+
+def _step_dir(result_dir: str, step: int) -> str:
+    return os.path.abspath(os.path.join(result_dir, "checkpoints",
+                                        str(step)))
+
+
+def save(result_dir: str, step: int, train_state: TrainState,
+         host_state: Dict[str, Any],
+         replay_state: Optional[ReplayState] = None) -> str:
+    path = _step_dir(result_dir, step)
+    os.makedirs(path, exist_ok=True)
+    ckpt = {
+        "model": train_state.model.state_dict(),
+        "target": train_state.target.state_dict(),
+        "optimizer": train_state.optimizer.state_dict(),
+        "generator": train_state.generator.get_state(),
+        "updates": train_state.updates,
+        "host_state": dict(host_state),
+    }
+    if replay_state is not None:
+        ckpt["replay_state"] = {
+            "storage": replay_state.storage, "t": replay_state.t,
+            "tree": replay_state.tree,
+            "max_priority": replay_state.max_priority}
+    tmp = os.path.join(path, _FILE + ".tmp")
+    torch.save(ckpt, tmp)
+    os.replace(tmp, os.path.join(path, _FILE))
+    return path
+
+
+def latest_step(result_dir: str) -> Optional[int]:
+    d = os.path.join(result_dir, "checkpoints")
+    if not os.path.isdir(d):
+        return None
+    steps = [int(x) for x in os.listdir(d) if x.isdigit()]
+    return max(steps) if steps else None
+
+
+def restore(result_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """Load a checkpoint's dict onto the CPU (`load_state_dict` moves
+    tensors to the live modules' devices). Adds "step"."""
+    if step is None:
+        step = latest_step(result_dir)
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoints under {result_dir!r}")
+    ckpt = torch.load(os.path.join(_step_dir(result_dir, step), _FILE),
+                      map_location="cpu", weights_only=True)
+    ckpt["step"] = step
+    return ckpt
+
+
+def load_train_state(train_state: TrainState, ckpt: Dict[str, Any]) -> None:
+    """Copy a restored checkpoint into a live TrainState, in place."""
+    train_state.model.load_state_dict(ckpt["model"])
+    train_state.target.load_state_dict(ckpt["target"])
+    train_state.optimizer.load_state_dict(ckpt["optimizer"])
+    train_state.generator.set_state(ckpt["generator"])
+    train_state.updates = int(ckpt["updates"])
+
+
+def record_best(result_dir: str, step: int, score: float,
+                best_only: bool = False) -> None:
+    """Mark the checkpoint at `step` as the best-scoring one so far.
+    `best_only`: the dir exists SOLELY for best tracking, so a newer
+    best may reclaim it."""
+    d = os.path.join(result_dir, "checkpoints")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "best.json"), "w") as f:
+        json.dump({"step": int(step), "score": float(score),
+                   "best_only": bool(best_only)}, f)
+
+
+def best_step(result_dir: str) -> Optional[Dict[str, Any]]:
+    """{"step", "score", "best_only"} of the best checkpoint, or None."""
+    p = os.path.join(result_dir, "checkpoints", "best.json")
+    if not os.path.isfile(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
+def maybe_record_best(result_dir: str, best_score: float,
+                      mean_return: float, n_episodes: int,
+                      min_episodes: int, env_steps: int, save_fn,
+                      protected_steps=()) -> float:
+    """Snapshot whenever the log-interval episode mean (over at least
+    `min_episodes` episodes) makes a new high. Returns the updated best
+    score. The PREVIOUS best dir is deleted iff it was created solely by
+    best tracking and is not a protected (interval/final) step."""
+    if n_episodes < min_episodes or mean_return <= best_score:
+        return best_score
+    prev = best_step(result_dir)
+    save_fn()
+    protected = set(int(s) for s in protected_steps)
+    record_best(result_dir, env_steps, mean_return,
+                best_only=env_steps not in protected)
+    if (prev is not None and prev.get("best_only")
+            and int(prev["step"]) != int(env_steps)
+            and int(prev["step"]) not in protected):
+        shutil.rmtree(_step_dir(result_dir, int(prev["step"])),
+                      ignore_errors=True)
+    return mean_return

@@ -1,0 +1,262 @@
+"""Trainer: the host loop gluing acting, replay and the learner.
+
+Port of the default `rltime_tpu/training/trainer.py:Trainer`. The loop
+alternates {device acting over all lanes, chunk insert, K update
+steps}; the update path never reads back to the host except to log.
+Built from the same JSON config dict as the JAX trainer, plus an
+explicit `device` ("cuda" raises when no card is present).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+import rltime_tpu_torch.envs  # noqa: F401  (registers env types)
+import rltime_tpu_torch.exploration  # noqa: F401  (registers exploration types)
+from rltime_tpu_torch import not_ported
+from rltime_tpu_torch.acting.actor import Actor
+from rltime_tpu_torch.config.config import build
+from rltime_tpu_torch.device import resolve_device
+from rltime_tpu_torch.history.replay import (
+    ReplayConfig, replay_init, replay_insert,
+)
+from rltime_tpu_torch.models.policy import ModelConfig
+from rltime_tpu_torch.training import checkpoint as ckpt_lib
+from rltime_tpu_torch.training.learner import (
+    AlgoConfig, make_insert_and_update_step, make_train_state,
+    make_update_step,
+)
+from rltime_tpu_torch.utils.loggers import RunLogger
+from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
+from rltime_tpu_torch.utils.profiling import PhaseTimers
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    total_env_steps: int = 100_000
+    warmup_env_steps: int = 1_000
+    chunk_len: int = 16
+    updates_per_chunk: int = 1
+    log_interval: int = 2_000        # env steps
+    checkpoint_interval: int = 50_000
+    checkpoint_replay: bool = False
+    resume: bool = False
+    track_best: bool = True
+    best_min_episodes: int = 5
+    record_transcript: bool = False
+    profile_dir: str = ""
+    profile_port: int = 0
+    async_acting: bool = False
+    publish_interval: int = 1
+    trainer: str = "default"
+    supersteps_per_dispatch: int = 1
+    interleave_updates: bool = False
+
+    def __post_init__(self):
+        if self.trainer in ("fused", "apex"):
+            raise not_ported(f"train.trainer={self.trainer!r}",
+                             "fused.py" if self.trainer == "fused"
+                             else "mesh, apex, pool")
+        if self.trainer != "default":
+            raise ValueError(f"unknown trainer {self.trainer!r}")
+        if self.async_acting:
+            raise not_ported("train.async_acting", "mesh, apex, pool")
+        if self.record_transcript:
+            raise not_ported("train.record_transcript", "remaining options")
+        if self.profile_dir or self.profile_port:
+            raise not_ported("train.profile_dir/profile_port",
+                             "the port benchmark")
+
+
+def _mk_model_cfg(model: Dict[str, Any], num_actions: int) -> ModelConfig:
+    m = dict(model)
+    for k in ("mlp_hidden", "cnn_channels"):
+        if k in m:
+            m[k] = tuple(m[k])
+    return ModelConfig(num_actions=num_actions, **m)
+
+
+class Trainer:
+    def __init__(self, config: Dict[str, Any], result_dir: str,
+                 logger: Optional[RunLogger] = None,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.result_dir = result_dir
+        seed = int(config.get("seed", 0))
+
+        self.env = build(config["env"], seed=seed)
+        spec = self.env.spec
+        self.frame_stack = int(config.get("frame_stack", 1))
+        self.model_cfg = _mk_model_cfg(config.get("model", {}),
+                                       spec.num_actions)
+        self.algo_cfg = AlgoConfig(**config.get("algo", {}))
+        self.loop_cfg = TrainLoopConfig(**config.get("train", {}))
+        self.replay_cfg = ReplayConfig(
+            num_envs=self.env.num_envs,
+            horizon=self.algo_cfg.n_step,
+            chunk_len=self.loop_cfg.chunk_len,
+            lookback=self.frame_stack - 1,
+            **config.get("replay", {}))
+
+        obs_dt = torch.uint8 if spec.obs_dtype == np.uint8 else torch.float32
+        fields = {
+            "obs": (spec.obs_shape, obs_dt),
+            "action": ((), torch.int32),
+            "reward": ((), torch.float32),
+            "terminated": ((), torch.bool),
+            "done": ((), torch.bool),
+        }
+        self.replay_state = replay_init(self.replay_cfg, fields,
+                                        self.device)
+
+        exploration = build(config.get(
+            "exploration", {"type": "epsilon_greedy"}))
+        self.actor = Actor(
+            self.env, self.model_cfg, self.frame_stack, exploration,
+            make_generator(seed, "actor", self.device),
+            self.loop_cfg.chunk_len, self.device)
+        self.flatten = len(spec.obs_shape) == 1
+
+        if self.flatten:
+            in_shape = (int(np.prod(spec.obs_shape)) * self.frame_stack,)
+        else:
+            in_shape = (self.frame_stack,) + tuple(spec.obs_shape)
+        self.train_state = make_train_state(
+            self.model_cfg, self.algo_cfg, in_shape,
+            fold_in_str(seed, "learner"), self.device)
+        upd = make_update_step(self.algo_cfg, self.replay_cfg,
+                               self.frame_stack, self.flatten)
+        self._insert_update = make_insert_and_update_step(
+            self.replay_cfg, upd, self.loop_cfg.updates_per_chunk)
+
+        self.timers = PhaseTimers()
+        self.logger = logger or RunLogger(result_dir, config)
+        self.last_metrics: Dict[str, torch.Tensor] = {}
+        self.updates_done = 0
+        self._t_start = time.time()
+        self._steps_at_last_log = 0
+        self._time_at_last_log = self._t_start
+        self._best_score = float("-inf")
+        self._protected_steps: set = set()
+
+        if self.loop_cfg.resume:
+            self._try_resume()
+
+    # ----- checkpointing -----
+    def _host_state(self):
+        return dict(env_steps=self.actor.env_steps,
+                    updates=self.updates_done)
+
+    def save_checkpoint(self, protect: bool = True):
+        """`protect=True` (interval/final saves) marks the step as never
+        garbage-collectable by best-checkpoint cleanup."""
+        rp = (self.replay_state if self.loop_cfg.checkpoint_replay
+              else None)
+        path = ckpt_lib.save(self.result_dir, self.actor.env_steps,
+                             self.train_state, self._host_state(), rp)
+        if protect:
+            self._protected_steps.add(self.actor.env_steps)
+        return path
+
+    def _maybe_save_best(self, mean_return: float, n_episodes: int):
+        if not self.loop_cfg.track_best:
+            return
+        self._best_score = ckpt_lib.maybe_record_best(
+            self.result_dir, self._best_score, mean_return, n_episodes,
+            self.loop_cfg.best_min_episodes, self.actor.env_steps,
+            lambda: self.save_checkpoint(protect=False),
+            self._protected_steps)
+
+    def _try_resume(self):
+        step = ckpt_lib.latest_step(self.result_dir)
+        if step is None:
+            return
+        best = ckpt_lib.best_step(self.result_dir)
+        if best is not None:
+            self._best_score = float(best["score"])
+        restored = ckpt_lib.restore(self.result_dir, step)
+        ckpt_lib.load_train_state(self.train_state, restored)
+        self.actor.env_steps = int(restored["host_state"]["env_steps"])
+        self.updates_done = int(restored["host_state"]["updates"])
+        if self.loop_cfg.checkpoint_replay and "replay_state" in restored:
+            rs = restored["replay_state"]
+            for name, arr in rs["storage"].items():
+                self.replay_state.storage[name].copy_(arr)
+            self.replay_state.t = int(rs["t"])
+            self.replay_state.tree = rs["tree"].to(self.device)
+            self.replay_state.max_priority = rs["max_priority"].to(
+                self.device)
+        print(f"resumed from checkpoint at env step {step}")
+
+    # ----- training -----
+    def _beta(self) -> float:
+        a = self.algo_cfg
+        frac = min(self.actor.env_steps
+                   / max(self.loop_cfg.total_env_steps, 1), 1.0)
+        return a.per_beta_start + frac * (a.per_beta_end
+                                          - a.per_beta_start)
+
+    def train_chunk(self):
+        """One acting chunk + its learner updates. Returns metrics."""
+        with self.timers.phase("act"):
+            chunk, act_info = self.actor.rollout(self.train_state.model)
+        metrics = {}
+        if self.actor.env_steps >= self.loop_cfg.warmup_env_steps:
+            with self.timers.phase("insert+update", sync=self.device):
+                self.train_state, self.replay_state, metrics = \
+                    self._insert_update(self.train_state,
+                                        self.replay_state, chunk,
+                                        self._beta())
+            self.updates_done += self.loop_cfg.updates_per_chunk
+            self.last_metrics = metrics
+        else:  # warmup: fill replay without updating
+            with self.timers.phase("insert", sync=self.device):
+                replay_insert(self.replay_cfg, self.replay_state, chunk)
+        return metrics, act_info
+
+    def train(self):
+        cfg = self.loop_cfg
+        next_log = self.actor.env_steps + cfg.log_interval
+        next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
+        while self.actor.env_steps < cfg.total_env_steps:
+            metrics, _ = self.train_chunk()
+            if self.actor.env_steps >= next_log:
+                next_log = self.actor.env_steps + cfg.log_interval
+                self._log(metrics)
+            if self.actor.env_steps >= next_ckpt:
+                next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
+                self.save_checkpoint()
+        self.save_checkpoint()
+        self.logger.close()
+        return self
+
+    def _log(self, metrics):
+        rets, lens = self.actor.episode_stats()
+        now = time.time()
+        steps = self.actor.env_steps
+        sps = ((steps - self._steps_at_last_log)
+               / max(now - self._time_at_last_log, 1e-9))
+        self._steps_at_last_log = steps
+        self._time_at_last_log = now
+        scalars = dict(env_steps=steps, updates=self.updates_done,
+                       steps_per_s=sps)
+        if rets:
+            scalars["episode_return_mean"] = float(np.mean(rets))
+            scalars["episode_return_median"] = float(np.median(rets))
+            scalars["episode_len_mean"] = float(np.mean(lens))
+            self._maybe_save_best(scalars["episode_return_mean"],
+                                  len(rets))
+        for name, secs in self.timers.pop().items():
+            scalars[f"time/{name}_s"] = secs
+        for k, v in metrics.items():
+            if not k.startswith("debug_"):
+                scalars[f"train/{k}"] = float(v)
+        self.logger.log_scalars(steps, scalars)
+        self.logger.summary(steps, {k: v for k, v in scalars.items()
+                                    if k != "env_steps"})
+

@@ -1,0 +1,50 @@
+"""The port's CUDA kernels against their plain versions, on a GPU.
+
+Every test here is marked `cuda` and skips itself where no card is
+present. This file imports neither jax nor rltime_tpu, so it also runs
+on a GPU machine without them:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+import pytest
+import torch
+
+from rltime_tpu_torch.ops import gather
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_shape,dtype", [((84, 84), torch.uint8),
+                                             ((12, 16), torch.float32),
+                                             ((5, 7), torch.uint8)])
+def test_union_gather_kernel_matches_plain(cuda_device, row_shape, dtype):
+    """Bit-exact, incl. negative col0 and windows across the ring seam;
+    the (5, 7) uint8 row (35 B) takes the misaligned byte path."""
+    g = torch.Generator().manual_seed(0)
+    E, T, B, W = 8, 128, 64, 7
+    storage = torch.randint(0, 256, (E, T) + row_shape, generator=g)
+    storage = storage.to(dtype).to(cuda_device)
+    env = torch.randint(0, E, (B,), generator=g, dtype=torch.int32)
+    col0 = torch.randint(-3, T, (B,), generator=g, dtype=torch.int32)
+    col0[:2] = torch.tensor([-3, T - 2], dtype=torch.int32)
+    env, col0 = env.to(cuda_device), col0.to(cuda_device)
+    before = gather.LAUNCHES
+    out = gather.union_gather(storage, env, col0, W)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(out, gather.union_gather_reference(storage, env,
+                                                          col0, W))
+
+
+@pytest.mark.cuda
+def test_union_gather_rejects_mixed_devices(cuda_device):
+    storage = torch.zeros((2, 8, 16), dtype=torch.uint8, device=cuda_device)
+    idx = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gather.union_gather(storage, idx, idx, 3)

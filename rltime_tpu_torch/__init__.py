@@ -6,10 +6,15 @@ and numpy only (never jax, flax, optax, orbax or rltime_tpu), because
 the GPU machine it targets has none of them.
 
 Ported so far (ROADMAP.md): the default host `Trainer` for the
-feed-forward DQN path — dense PER replay with the frame-stack union
-gather (a hand-written CUDA kernel, `csrc/union_gather.cu`), the MLP
-and Nature-CNN torsos with linear or dueling heads, n-step double-Q
-Huber loss, Adam with optax's global-norm clip, and checkpoints.
+feed-forward DQN path and the R2D2 path — dense PER replay with the
+window gathers as hand-written CUDA kernels (`csrc/window_gather.cu`
+for every strip, stack done window and the R2D2 frame sequence,
+`csrc/union_gather.cu`
+for the FF frame-stack union), the MLP and Nature-CNN torsos with
+linear or dueling heads and an optional LSTM, n-step double-Q Huber
+loss, R2D2 burn-in from the stored carry with n-step or lambda targets
+through value rescaling, Adam with optax's global-norm clip, and
+checkpoints.
 Options not ported yet raise `NotImplementedError` via `not_ported`.
 """
 

@@ -1,24 +1,31 @@
 """Acting: the on-device act step + host rollout loop.
 
-Port of `rltime_tpu/acting/actor.py` (feed-forward policies). The act
-step runs on the device over ALL env lanes at once:
+Port of `rltime_tpu/acting/actor.py`. The act step runs on the device
+over ALL env lanes at once:
 
   raw obs (host) --H2D--> act_step (frame-stack update, obs-chunk
-  accumulator write, eps-greedy) --> actions (host)
+  accumulator write, LSTM carry reset + step, eps-greedy) --> actions
+  (host)
 
 Per step the host sends one raw obs batch and reads back the actions.
 The raw frames accumulate in a device chunk buffer and go to the replay
-from there, so they cross to the device once. Exploration draws come
+from there, so they cross to the device once. For a recurrent policy
+the carry CONSUMED by each step (after the `done_prev` reset: what R2D2
+burn-in resumes from) is written to device chunk buffers `rnn_c` and
+`rnn_h`; the carry never crosses to the host. Exploration draws come
 from the actor's own generator and enter the act step as tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from rltime_tpu_torch.models.policy import ModelConfig, QPolicy, q_values
+from rltime_tpu_torch.models.policy import (
+    ModelConfig, QPolicy, RnnState, initial_rnn_state, q_values,
+)
 
 
 @dataclasses.dataclass
@@ -26,15 +33,24 @@ class ActorDeviceState:
     """On-device acting state for E lockstep env lanes."""
     frames: torch.Tensor      # (E, F, ...) rolling frame stack
     obs_chunk: torch.Tensor   # (E, L, ...) chunk obs accumulator
+    rnn: Optional[RnnState] = None          # LSTM carry (c, h), (E, H)
+    rnn_chunk: Optional[RnnState] = None    # stored carries, (E, L, H)
 
 
-def init_actor_state(num_envs: int, frame_stack: int, obs_shape, obs_dtype,
-                     chunk_len: int, device) -> ActorDeviceState:
-    return ActorDeviceState(
+def init_actor_state(cfg: ModelConfig, num_envs: int, frame_stack: int,
+                     obs_shape, obs_dtype, chunk_len: int,
+                     device) -> ActorDeviceState:
+    state = ActorDeviceState(
         frames=torch.zeros((num_envs, frame_stack) + tuple(obs_shape),
                            dtype=obs_dtype, device=device),
         obs_chunk=torch.zeros((num_envs, chunk_len) + tuple(obs_shape),
                               dtype=obs_dtype, device=device))
+    if cfg.recurrent:
+        state.rnn = initial_rnn_state(cfg, num_envs, device)
+        state.rnn_chunk = tuple(
+            torch.zeros((num_envs, chunk_len, cfg.lstm_size), device=device)
+            for _ in range(2))
+    return state
 
 
 def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
@@ -70,7 +86,17 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
         state.obs_chunk[:, t_in_chunk] = obs
 
         net_in = frames.reshape(E, -1) if flatten_stack else frames
-        qv = q_values(cfg, model(net_in))
+        if cfg.recurrent:
+            # reset on the episode boundary; store the carry THIS step
+            # consumes (R2D2 storage)
+            rmask = (1.0 - done_prev.to(torch.float32))[:, None]
+            rnn = (state.rnn[0] * rmask, state.rnn[1] * rmask)
+            state.rnn_chunk[0][:, t_in_chunk] = rnn[0]
+            state.rnn_chunk[1][:, t_in_chunk] = rnn[1]
+            q, state.rnn = model(net_in, rnn)
+        else:
+            q = model(net_in)
+        qv = q_values(cfg, q)
         greedy = torch.argmax(qv, dim=-1).to(torch.int32)
         actions = torch.where(explore_u < eps, random_a.to(torch.int32),
                               greedy)
@@ -101,7 +127,7 @@ class Actor:
                                        len(spec.obs_shape) == 1)
         obs_dtype = (torch.uint8 if spec.obs_dtype == np.uint8
                      else torch.float32)
-        self.state = init_actor_state(env.num_envs, frame_stack,
+        self.state = init_actor_state(cfg, env.num_envs, frame_stack,
                                       spec.obs_shape, obs_dtype, chunk_len,
                                       device)
         self.obs = env.reset()
@@ -115,7 +141,9 @@ class Actor:
     def rollout(self, model: QPolicy):
         """Collect one chunk of `chunk_len` lockstep transitions.
 
-        Returns (chunk dict, each field (E, L, ...), info dict)."""
+        Returns (chunk dict, each field (E, L, ...), info dict); `obs`
+        and, for a recurrent policy, `rnn_c`/`rnn_h` are device
+        tensors."""
         L, E = self.chunk_len, self.env.num_envs
         dev, gen = self.device, self.generator
         act_buf = np.empty((E, L), np.int32)
@@ -154,6 +182,9 @@ class Actor:
         # Clone out of the accumulator: the next chunk overwrites it.
         chunk = dict(obs=self.state.obs_chunk.clone(), action=act_buf,
                      reward=rew_buf, terminated=term_buf, done=done_buf)
+        if self.cfg.recurrent:
+            chunk["rnn_c"] = self.state.rnn_chunk[0].clone()
+            chunk["rnn_h"] = self.state.rnn_chunk[1].clone()
         return chunk, dict(env_steps=self.env_steps, q_mean=float(q_mean))
 
     def episode_stats(self, clear: bool = True):

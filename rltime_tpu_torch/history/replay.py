@@ -14,8 +14,10 @@ Differences from the JAX version, by design:
     given; the JAX version donates and returns a new state.
   * The write cursor `t` is a host int: the insert slices the ring at
     it, and a device scalar would cost a host sync per insert.
-  * The frame-stack union gather's row copy is the CUDA kernel
-    `ops.gather.union_gather`.
+  * Window gathers run on the CUDA kernels of `ops.gather`: every
+    `replay_gather_window` strip, every frame stack's done window and
+    the R2D2 frame sequence on `window_gather` (K1), the FF frame-stack
+    union on `union_gather` (K2).
 
 Invariants (held against the JAX version in tests/test_torch_replay.py):
   * leaf(e, c) > 0 implies column c has `horizon` successors stored;
@@ -208,12 +210,12 @@ def replay_update_priorities(cfg: ReplayConfig, state: ReplayState,
 def replay_gather_window(cfg: ReplayConfig, state: ReplayState,
                          env: torch.Tensor, col: torch.Tensor,
                          length: int, fields=None) -> Dict[str, torch.Tensor]:
-    """Gather [col, col+length) (mod T) per sample: field -> (B, length, ...)."""
-    offs = torch.arange(length, device=col.device)
-    cols = torch.remainder(col.long()[:, None] + offs[None, :],
-                           cfg.steps_per_env)
+    """Gather [col, col+length) (mod T) per sample: field -> (B, length, ...).
+
+    One `window_gather` (K1) per field."""
+    env, col = env.to(torch.int32), col.to(torch.int32)
     names = fields if fields is not None else list(state.storage)
-    return {name: state.storage[name][env.long()[:, None], cols]
+    return {name: gather.window_gather(state.storage[name], env, col, length)
             for name in names}
 
 
@@ -273,17 +275,53 @@ def frame_stack_union_gather(cfg: ReplayConfig, state: ReplayState,
     F, n = num_frames, n_step
     if F <= 1:
         raise ValueError("union gather needs frame_stack > 1")
-    T = cfg.steps_per_env
     W = F + n
+    env = env.to(torch.int32)
     col0 = col.to(torch.int32) - (F - 1)
-    rows = gather.union_gather(state.storage[obs_field],
-                               env.to(torch.int32), col0, W)  # (B, W, ...)
+    rows = gather.union_gather(state.storage[obs_field], env, col0,
+                               W)                        # (B, W, ...)
     # done flag above union row j: done[col-F+1+j], j in [0, W-1)
-    offs = torch.arange(W - 1, device=col.device)
-    dcols = torch.remainder(col0.long()[:, None] + offs[None, :], T)
-    dones = state.storage[done_field][env.long()[:, None], dcols]
+    dones = gather.window_gather(state.storage[done_field], env, col0, W - 1)
     shape0 = (rows.shape[0], F) + (1,) * (rows.ndim - 2)
     v_t = _stack_validity(dones[:, :F - 1], rows.dtype).reshape(shape0)
     v_tn = _stack_validity(dones[:, n:n + F - 1],
                            rows.dtype).reshape(shape0)
     return rows[:, :F] * v_t, rows[:, n:n + F] * v_tn
+
+
+def sequence_stack_gather(cfg: ReplayConfig, state: ReplayState,
+                          env: torch.Tensor, col: torch.Tensor,
+                          length: int, num_frames: int):
+    """Per-step frame stacks over [col, col+length) from ONE obs window.
+
+    The R2D2 learner's sequence: the stack of step t (column col+t) is
+    `frame_stack_gather` at col+t, bit for bit. Instead of length
+    separate F-row stacks, one `window_gather` of length + F - 1 rows
+    from col - (F-1) serves them all: step t's stack is rows [t, t+F)
+    (a strided view), masked with the `_stack_validity` rule on a done
+    window from col - D, D = max(F-1, 1).
+
+    Returns (stacks (B, length, F, ...), dones (B, length + D)) with
+    dones[:, j] = done at column col - D + j, so the caller reads
+    done_prev (done at col+t-1) as dones[:, D-1:D-1+length] and the
+    boundary strip (done at col+t) as dones[:, D:D+length]."""
+    F = num_frames
+    D = max(F - 1, 1)
+    env, col = env.to(torch.int32), col.to(torch.int32)
+    rows = gather.window_gather(state.storage["obs"], env, col - (F - 1),
+                                length + F - 1)        # (B, length+F-1, ...)
+    dones = gather.window_gather(state.storage["done"], env, col - D,
+                                 length + D)           # (B, length+D)
+    B = rows.shape[0]
+    row_shape = tuple(rows.shape[2:])
+    stacks = rows.as_strided((B, length, F) + row_shape,
+                             (rows.stride(0), rows.stride(1),
+                              rows.stride(1)) + rows.stride()[2:])
+    if F == 1:
+        return stacks, dones
+    # done flags of step t's stack, old..new: done[col+t-j], j = F-1..1
+    sd = dones[:, D - (F - 1):D - 1 + length]            # (B, length+F-2)
+    sd = sd.unfold(1, F - 1, 1)                          # (B, length, F-1)
+    valid = _stack_validity(sd.reshape(B * length, F - 1), rows.dtype)
+    valid = valid.reshape((B, length, F) + (1,) * len(row_shape))
+    return stacks * valid, dones

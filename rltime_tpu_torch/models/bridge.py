@@ -8,7 +8,12 @@ The JAX package's `QPolicy` params (`{"params": {"torso_mod": ...,
     after the convs needs no row permutation because the port flattens
     its conv output in NHWC order too (models/torso.py);
   * the dueling head's `Dense_0..3` follow flax's call order: V hidden,
-    V out, A hidden, A out.
+    V out, A hidden, A out;
+  * the LSTM (`lstm`: flax `OptimizedLSTMCell`) keeps eight Dense
+    blocks: `ii, if, ig, io` are (in, H) kernels with no bias, `hi, hf,
+    hg, ho` (H, H) kernels with a bias. Their transposes stack, in
+    i, f, g, o order, into the port's `lstm.weight_ih` (4H, in) and
+    `lstm.weight_hh` (4H, H); the hidden biases into `lstm.bias_hh`.
 No jax import: callers convert params with `np.asarray` leaf-wise.
 """
 from __future__ import annotations
@@ -49,6 +54,9 @@ def _kernel_to_flax(w: np.ndarray, kind: str) -> np.ndarray:
     return w.transpose(2, 3, 1, 0) if kind == "conv" else w.T
 
 
+_GATES = ("i", "f", "g", "o")
+
+
 def flax_to_state_dict(cfg: ModelConfig,
                        variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """flax variables (numpy leaves) -> port `state_dict`."""
@@ -59,6 +67,13 @@ def flax_to_state_dict(cfg: ModelConfig,
         sd[f"{prefix}.weight"] = torch.tensor(np.ascontiguousarray(
             _kernel_to_torch(np.asarray(p["kernel"]), kind)))
         sd[f"{prefix}.bias"] = torch.tensor(np.asarray(p["bias"]))
+    if cfg.recurrent:
+        lstm = params["lstm"]
+        for src, dst in (("i", "weight_ih"), ("h", "weight_hh")):
+            sd[f"lstm.{dst}"] = torch.tensor(np.concatenate(
+                [np.asarray(lstm[src + g]["kernel"]).T for g in _GATES]))
+        sd["lstm.bias_hh"] = torch.tensor(np.concatenate(
+            [np.asarray(lstm["h" + g]["bias"]) for g in _GATES]))
     return sd
 
 
@@ -72,4 +87,15 @@ def state_dict_to_flax(cfg: ModelConfig,
             "kernel": np.ascontiguousarray(_kernel_to_flax(w, kind)),
             "bias": sd[f"{prefix}.bias"].detach().cpu().numpy().copy(),
         }
+    if cfg.recurrent:
+        H = cfg.lstm_size
+        w_ih, w_hh, b_hh = (sd[f"lstm.{k}"].detach().cpu().numpy()
+                            for k in ("weight_ih", "weight_hh", "bias_hh"))
+        lstm: Dict[str, Dict[str, np.ndarray]] = {}
+        for k, g in enumerate(_GATES):
+            rows = slice(k * H, (k + 1) * H)
+            lstm["i" + g] = {"kernel": np.ascontiguousarray(w_ih[rows].T)}
+            lstm["h" + g] = {"kernel": np.ascontiguousarray(w_hh[rows].T),
+                             "bias": b_hh[rows].copy()}
+        params["lstm"] = lstm
     return {"params": params}

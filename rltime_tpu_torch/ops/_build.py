@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes, no torch headers).
 
-`load()` compiles `rltime_tpu_torch/csrc/union_gather.cu` with nvcc for
-Hopper (`sm_90a`) into a shared library with a plain C interface, at
-first use, under `build/rltime_tpu_torch/` at the repository root, named
-by a hash of the source and flags, and loads it with ctypes. A missing
-nvcc raises: there is no fallback.
+Every `rltime_tpu_torch/csrc/*.cu` is compiled with nvcc for Hopper
+(`sm_90a`) into its own shared library with a plain C interface, at
+first use, under `build/rltime_tpu_torch/<key>/` at the repository
+root. `<key>` is a hash of all the sources and the flags, so an edit to
+any source rebuilds them all. The nvcc processes of one build run
+together, one per source. `load(name)` returns the loaded library of
+`csrc/<name>.cu`. A missing nvcc or a failed build raises: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -14,14 +17,26 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "union_gather.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "rltime_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
+# Every kernel's C entry point has this signature:
+# (out, storage, env, col, B, window, T, row_bytes, stream) -> cudaError_t
+_GATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> Dict[str, Path]:
+    """Kernel name (file stem) -> source path, for every csrc/*.cu."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
 def _find_nvcc() -> str:
@@ -33,42 +48,58 @@ def _find_nvcc() -> str:
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the union-gather CUDA kernel cannot be built")
+            "the port's CUDA kernels cannot be built")
     return nvcc
 
 
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"union_gather_{key}.so"
+def build_dir(srcs: Dict[str, Path]) -> Path:
+    """Where the libraries for these sources and the flags live."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, path in srcs.items():
+        h.update(name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernel library unless it is already built."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)   # atomic: concurrent builders never see a partial file
-    return so
+def build() -> Dict[str, Path]:
+    """Compile every kernel library that is not built yet, all nvcc
+    processes at once. Returns name -> library path."""
+    srcs = sources()
+    out = build_dir(srcs)
+    libs = {name: out / f"{name}.so" for name in srcs}
+    todo = [name for name, path in libs.items() if not path.exists()]
+    if not todo:
+        return libs
+    nvcc = _find_nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = out / f"{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
+        procs[name] = (tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    errors = []
+    for name, (tmp, cmd, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+        else:
+            # atomic: a concurrent build never sees a partial file
+            os.replace(tmp, libs[name])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return libs
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed, then load once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.union_gather.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-        lib.union_gather.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed, then load `csrc/<name>.cu`'s library once per
+    process."""
+    if name not in _libs:
+        path = build()[name]
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, name)
+        fn.argtypes = _GATHER_ARGTYPES
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]

@@ -1,8 +1,8 @@
-"""Huber / double-DQN target / weighted TD loss.
+"""Huber / double-DQN target / weighted TD loss / sequence priority.
 
-Port of the `rltime_tpu/ops/losses.py` functions the feed-forward DQN
-update calls; the IQN quantile-Huber loss and the R2D2 sequence
-priority are ROADMAP.md items. Per-sample |TD| is returned for PER.
+Port of the `rltime_tpu/ops/losses.py` functions the DQN and R2D2
+updates call; the IQN quantile-Huber loss is a ROADMAP.md item.
+Per-sample |TD| is returned for PER.
 """
 from __future__ import annotations
 
@@ -35,3 +35,17 @@ def q_learning_loss(q, actions, targets, weights=None, kappa: float = 1.0):
     if weights is not None:
         per_sample = per_sample * weights
     return torch.mean(per_sample), torch.abs(td)
+
+
+def sequence_priority(td_abs: torch.Tensor, mask: torch.Tensor,
+                      eta: float = 0.9) -> torch.Tensor:
+    """R2D2 sequence priority: eta*max + (1-eta)*mean over valid steps.
+
+    td_abs: (B, T) per-step |TD|; mask: (B, T) 1.0 for steps that
+    contribute to the loss. Returns (B,)."""
+    m = mask.to(td_abs.dtype)
+    masked = td_abs * m
+    mx = torch.max(masked, dim=-1).values
+    mean = torch.sum(masked, dim=-1) / torch.clamp(torch.sum(m, dim=-1),
+                                                   min=1.0)
+    return eta * mx + (1.0 - eta) * mean

@@ -66,13 +66,12 @@ class AlgoConfig:
 
     def __post_init__(self):
         if self.algo == "iqn":
-            raise not_ported("algo.algo='iqn'", "IQN/LSTM/MinAtar models")
-        if self.algo == "r2d2":
-            raise not_ported("algo.algo='r2d2'", "r2d2.py")
-        if self.algo != "dqn":
+            raise not_ported("algo.algo='iqn'", "IQN/MinAtar models")
+        if self.algo not in ("dqn", "r2d2"):
             raise ValueError(f"unknown algo {self.algo!r}")
-        if self.use_lambda:
-            raise not_ported("algo.use_lambda", "the rest of returns/losses")
+        if self.use_lambda and self.algo == "dqn":
+            raise not_ported("algo.use_lambda with algo='dqn' (FF Q(lambda))",
+                             "remaining options")
         if self.optimizer == "rmsprop":
             raise not_ported("algo.optimizer='rmsprop'",
                              "remaining options")
@@ -154,6 +153,37 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+def apply_gradients(cfg: AlgoConfig, state: TrainState,
+                    loss: torch.Tensor) -> torch.Tensor:
+    """Backward of `loss` through the online net, optax-rule global-norm
+    clip, Adam, the update count and the periodic target sync, in
+    place. Returns the pre-clip gradient norm (as the JAX version
+    reports it)."""
+    params = list(state.model.parameters())
+    grads = torch.autograd.grad(loss, params)
+    g_norm = _global_norm(grads)
+    if cfg.grad_clip > 0:
+        # optax.clip_by_global_norm: scale only when g_norm >= max
+        # (clip_grad_norm_'s max/(norm+1e-6) is a different rule)
+        keep = g_norm < cfg.grad_clip
+        grads = [torch.where(keep, g, (g / g_norm) * cfg.grad_clip)
+                 for g in grads]
+    for p, g in zip(params, grads):
+        p.grad = g
+    if cfg.lr_decay_updates > 0:
+        for group in state.optimizer.param_groups:
+            group["lr"] = learning_rate(cfg, state.updates)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+
+    state.updates += 1
+    if state.updates % cfg.target_update_freq == 0:
+        with torch.no_grad():
+            for tp, p in zip(state.target.parameters(), params):
+                tp.copy_(p)
+    return g_norm
+
+
 def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
                      frame_stack: int, flatten: bool):
     """Build the learner update.
@@ -186,29 +216,7 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
             y = losses.double_q_target(q_tn_online, q_tn_target, rew, disc)
         loss, td_abs = losses.q_learning_loss(
             q_t, batch["action"], y, weights=weight, kappa=cfg.huber_kappa)
-
-        params = list(model.parameters())
-        grads = torch.autograd.grad(loss, params)
-        g_norm = _global_norm(grads)      # reported pre-clip, as in JAX
-        if cfg.grad_clip > 0:
-            # optax.clip_by_global_norm: scale only when g_norm >= max
-            # (clip_grad_norm_'s max/(norm+1e-6) is a different rule)
-            keep = g_norm < cfg.grad_clip
-            grads = [torch.where(keep, g, (g / g_norm) * cfg.grad_clip)
-                     for g in grads]
-        for p, g in zip(params, grads):
-            p.grad = g
-        if cfg.lr_decay_updates > 0:
-            for group in state.optimizer.param_groups:
-                group["lr"] = learning_rate(cfg, state.updates)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-
-        state.updates += 1
-        if state.updates % cfg.target_update_freq == 0:
-            with torch.no_grad():
-                for tp, p in zip(target.parameters(), params):
-                    tp.copy_(p)
+        g_norm = apply_gradients(cfg, state, loss)
 
         td_abs = td_abs.detach()
         replay_update_priorities(replay_cfg, rstate, idx["leaf"], td_abs,

@@ -3,6 +3,9 @@
 Port of the default `rltime_tpu/training/trainer.py:Trainer`. The loop
 alternates {device acting over all lanes, chunk insert, K update
 steps}; the update path never reads back to the host except to log.
+`algo.algo` picks the FF DQN update (`training/learner.py`) or the
+R2D2 one (`training/r2d2.py`, whose replay also stores the actor's
+LSTM carry as `rnn_c`/`rnn_h`).
 Built from the same JSON config dict as the JAX trainer, plus an
 explicit `device` ("cuda" raises when no card is present).
 """
@@ -29,6 +32,9 @@ from rltime_tpu_torch.training import checkpoint as ckpt_lib
 from rltime_tpu_torch.training.learner import (
     AlgoConfig, make_insert_and_update_step, make_train_state,
     make_update_step,
+)
+from rltime_tpu_torch.training.r2d2 import (
+    make_r2d2_update_step, r2d2_horizon,
 )
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
@@ -96,9 +102,14 @@ class Trainer:
                                        spec.num_actions)
         self.algo_cfg = AlgoConfig(**config.get("algo", {}))
         self.loop_cfg = TrainLoopConfig(**config.get("train", {}))
+        r2d2 = self.algo_cfg.algo == "r2d2"
+        if self.model_cfg.recurrent and not r2d2:
+            raise ValueError("a recurrent model (lstm_size > 0) trains with "
+                             "algo='r2d2'")
         self.replay_cfg = ReplayConfig(
             num_envs=self.env.num_envs,
-            horizon=self.algo_cfg.n_step,
+            horizon=(r2d2_horizon(self.algo_cfg) if r2d2
+                     else self.algo_cfg.n_step),
             chunk_len=self.loop_cfg.chunk_len,
             lookback=self.frame_stack - 1,
             **config.get("replay", {}))
@@ -111,6 +122,10 @@ class Trainer:
             "terminated": ((), torch.bool),
             "done": ((), torch.bool),
         }
+        if self.model_cfg.recurrent:
+            H = self.model_cfg.lstm_size
+            fields["rnn_c"] = ((H,), torch.float32)
+            fields["rnn_h"] = ((H,), torch.float32)
         self.replay_state = replay_init(self.replay_cfg, fields,
                                         self.device)
 
@@ -129,8 +144,13 @@ class Trainer:
         self.train_state = make_train_state(
             self.model_cfg, self.algo_cfg, in_shape,
             fold_in_str(seed, "learner"), self.device)
-        upd = make_update_step(self.algo_cfg, self.replay_cfg,
-                               self.frame_stack, self.flatten)
+        if r2d2:
+            upd = make_r2d2_update_step(self.model_cfg, self.algo_cfg,
+                                        self.replay_cfg, self.frame_stack,
+                                        self.flatten)
+        else:
+            upd = make_update_step(self.algo_cfg, self.replay_cfg,
+                                   self.frame_stack, self.flatten)
         self._insert_update = make_insert_and_update_step(
             self.replay_cfg, upd, self.loop_cfg.updates_per_chunk)
 

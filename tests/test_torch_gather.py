@@ -1,10 +1,12 @@
-"""Port parity: the union gather and the frame-stack union gather.
+"""Port parity: the window and union gathers and what is built on them.
 
-The port's plain `union_gather` (the CPU path of the CUDA kernel's
-wrapper) against the Pallas TPU kernel `fused_union_gather` run in
-interpret mode, and the port's `frame_stack_union_gather` against the
-JAX one — all bit-exact. The CUDA kernel itself is compared with its
-plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+The port's plain `window_gather` and `union_gather` (the CPU paths of
+the CUDA kernels' wrappers) against the Pallas TPU kernels
+`window_gather` and `fused_union_gather` run in interpret mode; the
+port's `frame_stack_union_gather`, `replay_gather_window` and R2D2
+sequence stacks against the JAX ones — all bit-exact. The CUDA kernels
+themselves are compared with their plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,9 @@ import pytest
 import torch
 
 from rltime_tpu.history import replay as jreplay
+from rltime_tpu.ops import pallas_gather
 from rltime_tpu.ops.pallas_gather import fused_union_gather, pad_rows
+from rltime_tpu.training.r2d2 import _gather_seq_frames
 from rltime_tpu_torch.history import replay as treplay
 from rltime_tpu_torch.ops import gather
 
@@ -40,11 +44,11 @@ def test_union_gather_matches_pallas_kernel(dtype):
     ref = fused_union_gather(pad_rows(jnp.asarray(storage)),
                              jnp.asarray(env), jnp.asarray(col0), W,
                              group=4, interpret=True)[..., :row]
-    before = gather.PLAIN_CALLS
+    before = gather.PLAIN_CALLS["union_gather"]
     out = gather.union_gather(torch.from_numpy(storage),
                               torch.from_numpy(env),
                               torch.from_numpy(col0), W)
-    assert gather.PLAIN_CALLS == before + 1
+    assert gather.PLAIN_CALLS["union_gather"] == before + 1
     assert out.shape == (B, W, 12, 16) and out.dtype == torch.from_numpy(
         storage).dtype
     np.testing.assert_array_equal(out.numpy().reshape(B, W, row),
@@ -92,8 +96,12 @@ def test_frame_stack_union_gather_matches_jax():
         storage={"obs": torch.from_numpy(obs),
                  "done": torch.from_numpy(done)},
         t=0, tree=torch.zeros(1), max_priority=torch.ones(()))
+    before = dict(gather.PLAIN_CALLS)
     t_t, t_tn = treplay.frame_stack_union_gather(
         tcfg, tstate, torch.from_numpy(env), torch.from_numpy(col), F, n)
+    # one union gather of the rows, one window gather of their dones
+    assert {k: v - before[k] for k, v in gather.PLAIN_CALLS.items()} == {
+        "union_gather": 1, "window_gather": 1}
     assert np.asarray(j_t).any() and (np.asarray(j_t) == 0).any()
     np.testing.assert_array_equal(t_t.numpy(), np.asarray(j_t))
     np.testing.assert_array_equal(t_tn.numpy(), np.asarray(j_tn))
@@ -105,3 +113,122 @@ def test_frame_stack_union_gather_matches_jax():
                                      torch.from_numpy(col), F)
     np.testing.assert_array_equal(t_s.numpy(), np.asarray(j_s))
 
+
+# ----- K1: window_gather ---------------------------------------------------
+
+def _field(rng, E, T, row_shape, dtype):
+    if dtype == np.uint8:
+        return rng.integers(0, 256, (E, T) + row_shape, dtype=np.uint8)
+    if dtype == np.bool_:
+        return rng.random((E, T) + row_shape) < 0.3
+    return (rng.normal(size=(E, T) + row_shape) * 100).astype(dtype)
+
+
+@pytest.mark.parametrize("row_shape,dtype,window", [
+    ((84, 84), np.uint8, 11),      # frames
+    ((), np.float32, 13),          # reward strip (4-byte rows)
+    ((), np.int32, 13),            # action strip
+    ((), np.bool_, 14),            # done/terminated strips (1-byte rows)
+    ((3, 5), np.float32, 7),       # odd row width
+])
+def test_window_gather_matches_pallas_kernel(row_shape, dtype, window):
+    E, T, B = 3, 32, 12
+    rng = np.random.default_rng(5)
+    storage = _field(rng, E, T, row_shape, dtype)
+    env = rng.integers(0, E, B).astype(np.int32)
+    col = rng.integers(-4, T, B).astype(np.int32)
+    col[:4] = [-1, -3, T - 2, T - window + 1]   # negative and seam windows
+    ref = pallas_gather.window_gather(jnp.asarray(storage), jnp.asarray(env),
+                                      jnp.asarray(col), window,
+                                      interpret=True)
+    before = dict(gather.PLAIN_CALLS)
+    out = gather.window_gather(torch.from_numpy(storage),
+                               torch.from_numpy(env), torch.from_numpy(col),
+                               window)
+    assert gather.PLAIN_CALLS["window_gather"] == (
+        before["window_gather"] + 1)
+    assert gather.PLAIN_CALLS["union_gather"] == before["union_gather"]
+    assert out.shape == (B, window) + row_shape
+    assert out.dtype == torch.from_numpy(storage).dtype
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_window_gather_rejects_bad_inputs():
+    s = torch.zeros((2, 8, 4), dtype=torch.uint8)
+    i32 = torch.zeros((3,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gather.window_gather(s, i32.long(), i32, 2)        # env not int32
+    with pytest.raises(ValueError):
+        gather.window_gather(s, i32, i32[:2], 2)           # B mismatch
+    with pytest.raises(ValueError):
+        gather.window_gather(s, i32, i32, 0)               # window < 1
+    with pytest.raises(ValueError):
+        gather.window_gather(s, i32, i32, 9)               # window > T
+    with pytest.raises(ValueError):
+        gather.window_gather(s.transpose(0, 1), i32, i32, 2)   # strided
+    with pytest.raises(ValueError):
+        gather.window_gather(s[0, 0], i32, i32, 2)         # ndim < 2
+
+
+def _seq_replays(E, T, F, seed):
+    """The same ring contents in both packages, with many episode ends."""
+    rng = np.random.default_rng(seed)
+    fields = dict(obs=rng.integers(0, 256, (E, T, 6, 5), dtype=np.uint8),
+                  done=rng.random((E, T)) < 0.15,
+                  reward=rng.normal(size=(E, T)).astype(np.float32),
+                  action=rng.integers(0, 4, (E, T)).astype(np.int32))
+    fields["terminated"] = fields["done"] & (rng.random((E, T)) < 0.5)
+    kw = dict(num_envs=E, steps_per_env=T, horizon=1, chunk_len=8,
+              lookback=F - 1)
+    jst = jreplay.ReplayState(
+        storage={k: jnp.asarray(v) for k, v in fields.items()},
+        t=jnp.int32(0), tree=jnp.zeros((1,)), max_priority=jnp.ones(()))
+    tst = treplay.ReplayState(
+        storage={k: torch.from_numpy(v) for k, v in fields.items()},
+        t=0, tree=torch.zeros(1), max_priority=torch.ones(()))
+    return jreplay.ReplayConfig(**kw), jst, treplay.ReplayConfig(**kw), tst
+
+
+@pytest.mark.parametrize("F", [1, 4])
+def test_sequence_stacks_match_jax(F):
+    """One window per sample equals B*length separate stacks, and the
+    done strip from col - max(F-1, 1) is the ring's done column."""
+    E, T, B, length = 3, 64, 10, 21
+    jcfg, jst, tcfg, tst = _seq_replays(E, T, F, 6)
+    rng = np.random.default_rng(7)
+    env = rng.integers(0, E, B).astype(np.int32)
+    col = rng.integers(0, T, B).astype(np.int32)
+    col[:3] = [0, 1, T - 5]                 # lookback and seam windows
+    ref = _gather_seq_frames(jcfg, jst, jnp.asarray(env), jnp.asarray(col),
+                             length, F)
+    stacks, dones = treplay.sequence_stack_gather(
+        tcfg, tst, torch.from_numpy(env), torch.from_numpy(col), length, F)
+    assert stacks.shape == (B, length, F, 6, 5)
+    if F > 1:
+        assert (np.asarray(ref) == 0).all(axis=(3, 4)).any()  # masked frames
+    np.testing.assert_array_equal(stacks.numpy(), np.asarray(ref))
+    D = max(F - 1, 1)
+    cols = (col[:, None] - D + np.arange(length + D)[None, :]) % T
+    np.testing.assert_array_equal(
+        dones.numpy(), tst.storage["done"].numpy()[env[:, None], cols])
+
+
+def test_replay_gather_window_matches_jax():
+    E, T, B, length = 3, 64, 16, 25
+    jcfg, jst, tcfg, tst = _seq_replays(E, T, 4, 8)
+    rng = np.random.default_rng(9)
+    env = rng.integers(0, E, B).astype(np.int32)
+    col = rng.integers(-2, T, B).astype(np.int32)
+    col[:2] = [-1, T - 3]
+    names = ["action", "reward", "done", "terminated", "obs"]
+    before = gather.PLAIN_CALLS["window_gather"]
+    got = treplay.replay_gather_window(tcfg, tst, torch.from_numpy(env),
+                                       torch.from_numpy(col), length,
+                                       fields=names)
+    assert gather.PLAIN_CALLS["window_gather"] == before + len(names)
+    want = jreplay.replay_gather_window(jcfg, jst, jnp.asarray(env),
+                                        jnp.asarray(col), length,
+                                        fields=names)
+    for name in names:
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]), err_msg=name)

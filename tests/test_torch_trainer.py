@@ -44,11 +44,15 @@ def _img_cfg():
 def test_trainer_rings_match_jax(tmp_path):
     cfg = _img_cfg()
     jt = JTrainer(cfg, str(tmp_path / "jax")).train()
-    plain_before = gather.PLAIN_CALLS
+    plain_before = dict(gather.PLAIN_CALLS)
     tt = Trainer(cfg, str(tmp_path / "torch"), device="cpu").train()
     assert tt.updates_done == jt.updates_done > 0
-    # every update's frame-stack gather went through the (CPU) wrapper
-    assert gather.PLAIN_CALLS - plain_before == tt.updates_done
+    # every update's frame-stack gather, its stack done window and its
+    # three n-step strips (reward, done, terminated) went through the
+    # (CPU) wrappers
+    plain = {k: v - plain_before[k] for k, v in gather.PLAIN_CALLS.items()}
+    assert plain == {"union_gather": tt.updates_done,
+                     "window_gather": 4 * tt.updates_done}
     assert tt.replay_state.t == int(jt.replay_state.t) == 288 // 2
     for name in ("obs", "reward", "done", "terminated"):
         np.testing.assert_array_equal(
@@ -155,9 +159,9 @@ def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("section,key,value", [
     ("model", "torso", "minatar_cnn"), ("model", "head", "iqn"),
-    ("model", "lstm_size", 8), ("model", "channels_last", True),
+    ("algo", "optimizer", "rmsprop"), ("model", "channels_last", True),
     ("model", "space_to_depth", True), ("replay", "sampler", "tree"),
-    ("algo", "use_lambda", True), ("algo", "algo", "r2d2"),
+    ("algo", "use_lambda", True), ("train", "profile_dir", "x"),
     ("train", "trainer", "fused"), ("train", "trainer", "apex"),
     ("train", "async_acting", True), ("train", "record_transcript", True),
 ])

@@ -26,14 +26,33 @@ Phases (any failure exits non-zero and prints no result line):
      16,384 of warmup: 9 chunks of 64 steps, each with one R2D2 update.
      Counted as phase 3 is; window_gather serves the frame sequence and
      every strip. Then the warm windows, as in phase 3;
-  5. small-input checks that one learner update of each path on the
-     card agrees with the same update on the CPU (the CPU paths are held
-     to the JAX package by tests/test_torch_*.py).
+  5. the fused on-device path: the same entry point on
+     `minatar_breakout_dqn` at full width (E=256, T=512, MinAtar CNN,
+     dueling, batch 256, n=3, L=32, 64 updates per chunk, S=4) for
+     81,920 env steps: 2 warm chunks, then 2 dispatches of 4 supersteps,
+     512 learner updates. Counted as phase 3 is: window_gather serves
+     every update's three n-step strips (3 launches per update; the
+     frame_stack=1 obs gathers are plain advanced indexing). The
+     checkpoint is read back into a second trainer. Then one warm
+     dispatch under torch.cuda.set_sync_debug_mode("error") (a host
+     sync fails the run), 3 more timed by the host clock, and one
+     superstep under torch.profiler for the device-busy share;
+  6. the same trainer at bench.py's fused shape (L=128, 256 updates per
+     chunk, S=1, warmup 0): 2 warm + 6 timed dispatches, env-steps/s;
+  7. the first full-width dispatch of `minatar_breakout_iqn`,
+     `minatar_breakout_r2d2` (5 window_gather launches per update: the
+     frame sequence, its done window, three strips) and
+     `minatar_seaquest_dqn`, through the same entry point;
+  8. small-input checks that one learner update of each path, one
+     fused superstep on injected draws, and every device env's dynamics
+     agree on the card and on the CPU (the CPU paths are held to the
+     JAX package by tests/test_torch_*.py).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import math
@@ -53,6 +72,19 @@ DQN_PATH = dict(preset="pong_dqn_counting", steps=24_576, warmup=8_192,
 # 4..12 (env steps 16,384..49,152 after their rollout) run one update
 R2D2_PATH = dict(preset="atari_r2d2_counting", steps=49_152, warmup=16_384,
                  updates=9)
+# the fused presets: a chunk is 256 envs x L steps. Breakout DQN/IQN and
+# Seaquest (L=32, warmup 20,000): chunks 1-2 warm, then dispatches of
+# S=4 supersteps x 64 updates. Breakout R2D2 (L=16, warmup 40,000):
+# chunks 1-9 warm, then dispatches of S=8 supersteps x 8 updates.
+# `k1` = window_gather launches per update.
+FUSED_PATH = dict(preset="minatar_breakout_dqn", steps=81_920, updates=512,
+                  k1=3)
+FUSED_OTHERS = (
+    dict(preset="minatar_breakout_iqn", steps=49_152, updates=256, k1=3),
+    dict(preset="minatar_breakout_r2d2", steps=69_632, updates=64, k1=5),
+    dict(preset="minatar_seaquest_dqn", steps=49_152, updates=256, k1=3),
+)
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 
 
 def fail(msg: str) -> None:
@@ -195,19 +227,39 @@ def phase_kernels(smi: str):
         def plain():
             gather.window_gather_reference(storage, *next(it), W)
 
+        # the nearest single library call: one index_select over the
+        # ring flattened to rows, its row numbers built beforehand
+        flat = storage.view(E * T, -1)
+        offs = torch.arange(W, device=dev)
+        rowsets = [(e.long()[:, None] * T + torch.remainder(
+            c.long()[:, None] + offs, T)).reshape(-1) for e, c in sets]
+        check(torch.equal(flat.index_select(0, rowsets[0]).view_as(ref),
+                          ref), f"{name} {tag}: index_select != plain")
+        it_rows = itertools.cycle(rowsets)
+
+        def lib():
+            flat.index_select(0, next(it_rows))
+
         ev_ms, ev_plain = median_ms(kern, runs), median_ms(plain, runs)
         ms = device_ms_per_call(kern, runs)
         plain_ms = device_ms_per_call(plain, runs)
-        check(ms > 0 and plain_ms > 0,
+        lib_ms = device_ms_per_call(lib, min(runs, 9))
+        check(ms > 0 and plain_ms > 0 and lib_ms > 0,
               f"{name} {tag}: profiler saw no device time")
-        moved = 2 * out.numel() * out.element_size()
+        # least bytes: every output row read once and written once, and
+        # the two int32 index vectors read
+        moved = 2 * out.numel() * out.element_size() + 2 * 4 * B
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
         print(f"{name} {tag}: bit-exact; device time per call "
               f"(profiler, median of {runs}): kernel {ms:.4f} ms "
-              f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms; "
+              f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+              f"index_select {lib_ms:.4f} ms; bound {bound_ms:.5f} ms "
+              f"({moved} bytes at 3.35 TB/s): {bound_ms / ms:.1%} reached; "
               f"CUDA-event time per call incl. launch (median of {runs}): "
               f"kernel {ev_ms:.4f} ms, plain {ev_plain:.4f} ms  [{smi}]",
               flush=True)
-        results[name][tag] = (err, ms, plain_ms)
+        results[name][tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=bound_ms)
 
     def rand(shape, dtype):
         r = torch.randint(0, 256, shape, generator=g, device=dev,
@@ -244,6 +296,28 @@ def phase_kernels(smi: str):
             strip_bool, 256, 3, 0)
     compare("window_gather", "B=256 W=6 bool from col-3 (config-#2 stack "
             "dones)", strip_bool, 256, 6, 3)
+    del strip_f32, strip_bool
+    # K1 at the fused MinAtar paths' shapes, 256 x 512 rings: the R2D2
+    # preset's frame sequence (burn_in + seq_len + n = 65 rows of
+    # 10x10x4 u8 = 400 B from col), its 66-row done window from col - 1
+    # and its 65-row strips; the FF/IQN presets' n = 3 strips
+    E2, T2 = 256, 512
+    planes = rand((E2, T2, 10, 10, 4), torch.uint8)
+    compare("window_gather", "B=64 W=65 10x10x4 u8 (fused R2D2 frames)",
+            planes, 64, 65, 0, runs=15)
+    compare("window_gather", "B=64 W=65 10x10x4 u8 all across the seam",
+            planes, 64, 65, 0, runs=15, cross=True)
+    del planes
+    strip_f32 = torch.randn((E2, T2), generator=g, device=dev)
+    strip_bool = rand((E2, T2), torch.bool)
+    compare("window_gather", "B=64 W=66 bool from col-1 (fused R2D2 dones)",
+            strip_bool, 64, 66, 1, runs=15)
+    compare("window_gather", "B=64 W=65 f32 (fused R2D2 strips)", strip_f32,
+            64, 65, 0, runs=15)
+    compare("window_gather", "B=256 W=3 f32 (fused reward)", strip_f32,
+            256, 3, 0, runs=15)
+    compare("window_gather", "B=256 W=3 bool (fused done, terminated)",
+            strip_bool, 256, 3, 0, runs=15)
     del strip_f32, strip_bool
     compare("window_gather", "B=64 W=33 5x7 u8 (odd rows)",
             rand((8, 128, 5, 7), torch.uint8), 64, 33, 3)
@@ -405,6 +479,228 @@ def phase_steady_state(trainer, smi: str, chunks: int, profiled: int):
         print(f"  device {ms:9.4f} ms/chunk  {name[:110]}", flush=True)
 
 
+def run_fused_path(path: dict):
+    """Drive one fused preset through the CLI's entry point on the card
+    at full width, the launch counters zeroed just before and read just
+    after; check what every fused path must show. Returns (trainer,
+    launches, run seconds)."""
+    import torch
+    from rltime_tpu_torch import train
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    from rltime_tpu_torch.training import checkpoint as ckpt_lib
+    tag = path["preset"]
+    result_dir = ROOT / "results" / f"chip_smoke_{tag}"
+    shutil.rmtree(result_dir, ignore_errors=True)
+    argv = [tag, "--device", "cuda", "--result-dir", str(result_dir),
+            f"--train.total_env_steps={path['steps']}"]
+    torch.cuda.reset_peak_memory_stats()
+    gather.reset_counts()
+    t0 = time.perf_counter()
+    trainer = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(isinstance(trainer, FusedApexTrainer)
+          and trainer.device.type == "cuda", f"{tag}: not the fused trainer "
+          "on cuda")
+    E, n_upd = trainer.num_envs, path["updates"]
+    check(E == 256 and trainer.env_steps == path["steps"],
+          f"{tag}: {E} lanes, {trainer.env_steps} env steps")
+    check(trainer.updates_done == n_upd,
+          f"{tag}: {trainer.updates_done} updates, expected {n_upd}")
+    check(not any(plain.values()), f"{tag}: plain calls on the CUDA path "
+          f"{plain}")
+    check(launches == {"window_gather": path["k1"] * n_upd,
+                       "union_gather": 0},
+          f"{tag}: launches {launches}, expected {path['k1']} window_gather "
+          f"per update x {n_upd} updates and no union_gather")
+    m = trainer.last_metrics
+    for k in ("loss", "grad_norm", "td_abs", "q"):
+        check(math.isfinite(m[k].item()), f"{tag}: last {k} = {m[k].item()}")
+    rs = trainer.replay_state
+    obs = rs.storage["obs"]
+    check(rs.t == path["steps"] // E, f"{tag}: replay cursor {rs.t}")
+    check(obs.shape == (E, 512) + tuple(trainer.env.obs_shape)
+          and obs.dtype == torch.uint8 and obs.is_cuda,
+          f"{tag}: obs ring {obs.shape} {obs.dtype} {obs.device}")
+    written = obs[:, :rs.t]
+    check(int(written.max()) == 1 and 0 < float(written.float().mean()) < 1,
+          f"{tag}: obs ring is not binary planes with both values")
+    check(rs.storage["action"][:, :rs.t].unique().numel()
+          == trainer.env.num_actions, f"{tag}: not every action was taken")
+    check(bool(rs.storage["done"][:, :rs.t].any()), f"{tag}: no done flag")
+    tree = rs.tree
+    live = tree > 0
+    moved = live & (tree != rs.max_priority)
+    check(bool(torch.isfinite(tree).all()) and int(moved.sum()) > 0,
+          f"{tag}: priorities not finite, or none moved off max-priority")
+    # (the run's own log line has popped the fresh episodes: read the
+    # ring itself)
+    n_eps = int(trainer.actor_state.ring_cursor)
+    rets = trainer.actor_state.ret_ring[:min(n_eps, 256)].tolist()
+    check(n_eps > 0 and all(math.isfinite(r) for r in rets),
+          f"{tag}: no completed episode in the stat ring")
+    step = ckpt_lib.latest_step(str(result_dir))
+    check(step == path["steps"]
+          and (result_dir / "checkpoints" / str(step) / "state.pt").is_file(),
+          f"{tag}: checkpoint missing (latest step {step})")
+    print(f"{tag}: {path['steps']} env steps, {n_upd} updates in "
+          f"{wall:.2f} s (setup, warmup and the checkpoint included), "
+          f"launches {launches}, plain calls {plain}; last loss "
+          f"{m['loss'].item():.6g} grad_norm {m['grad_norm'].item():.6g} "
+          f"td_abs {m['td_abs'].item():.6g} q {m['q'].item():.6g}; "
+          f"{n_eps} episodes completed, mean return of the last "
+          f"{len(rets)} {sum(rets) / len(rets):.3f}; {int(live.sum())} live "
+          f"leaves, "
+          f"{int(moved.sum())} off max-priority; peak device memory "
+          f"{peak_gb:.3f} GB", flush=True)
+    return trainer, launches
+
+
+def phase_fused_path(smi: str):
+    """Phase 5: the counted run, the checkpoint read back, the no-sync
+    dispatch, the warm rates and the profiled superstep."""
+    import torch
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    trainer, launches = run_fused_path(FUSED_PATH)
+    mc, ac, lc = trainer.model_cfg, trainer.algo_cfg, trainer.loop_cfg
+    check(mc.torso == "minatar_cnn" and mc.head == "dueling"
+          and (ac.batch_size, ac.n_step) == (256, 3)
+          and (lc.chunk_len, lc.updates_per_chunk,
+               lc.supersteps_per_dispatch) == (32, 64, 4),
+          f"not the preset's shapes: {mc} {ac} {lc}")
+
+    # the checkpoint is reloadable: a second trainer resumes from it
+    cfg = copy.deepcopy(trainer.config)
+    cfg["train"]["resume"] = True
+    again = FusedApexTrainer(cfg, trainer.result_dir, device="cuda")
+    check(again.env_steps == trainer.env_steps
+          and again.updates_done == trainer.updates_done,
+          "resumed trainer's counters differ")
+    for (k, a), b in zip(trainer.train_state.model.state_dict().items(),
+                         again.train_state.model.state_dict().values()):
+        check(torch.equal(a, b), f"resumed param {k} differs")
+    check(torch.equal(again.actor_state.ret_ring, trainer.actor_state.ret_ring)
+          and all(torch.equal(v, trainer.actor_state.env_state[k])
+                  for k, v in again.actor_state.env_state.items()),
+          "resumed actor state differs")
+    del again
+    print("checkpoint read back: learner, counters and actor state equal",
+          flush=True)
+
+    # one warm dispatch during which any host sync raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.superstep()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("no-sync check: one warm dispatch (4 supersteps) ran under "
+          "set_sync_debug_mode('error')", flush=True)
+
+    dispatches = 3
+    S, L, E = trainer.supersteps, lc.chunk_len, trainer.num_envs
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        trainer.superstep()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = dispatches * S * L * E
+    n_upd = dispatches * S * lc.updates_per_chunk
+    super_ms = wall / (dispatches * S) * 1e3
+    print(f"steady state fused ({dispatches} warm dispatches of {S} "
+          f"supersteps): {steps / wall:.1f} env-steps/s, {n_upd / wall:.2f} "
+          f"updates/s, {super_ms:.2f} ms/superstep  [{smi}]", flush=True)
+    # the act phase alone: warm act + insert chunks (no updates), so
+    # the superstep's time splits into acting and the 64 updates
+    from rltime_tpu_torch.acting.device_actor import eps_schedule
+    chunks = 4
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        eps = eps_schedule(trainer.exploration, E, trainer.env_steps, L,
+                           trainer.device)
+        trainer._warm_super(trainer.train_state.model, trainer.actor_state,
+                            trainer.replay_state, eps)
+    torch.cuda.synchronize()
+    act_ms = (time.perf_counter() - t0) / chunks * 1e3
+    print(f"  act + insert alone ({chunks} chunks of {L} steps): "
+          f"{act_ms:.2f} ms/chunk ({act_ms / L:.3f} ms/step), leaving "
+          f"{(super_ms - act_ms) / lc.updates_per_chunk:.3f} ms for each of "
+          f"the {lc.updates_per_chunk} updates of a superstep", flush=True)
+    trainer.supersteps = 1              # profile ONE superstep
+    p_wall, busy_ms, per_name = device_profile(trainer.superstep)
+    trainer.supersteps = S
+    print(f"  profiled (1 more superstep): device busy {busy_ms:.3f} "
+          f"ms/superstep, {busy_ms / super_ms:.1%} of the unprofiled "
+          f"superstep time ({busy_ms / 1e3 / p_wall:.1%} of the profiled "
+          f"{p_wall:.3f} s)", flush=True)
+    k1_ms = sum(v for name, v in per_name.items() if "window_gather" in name)
+    print(f"  window_gather kernel: {k1_ms:.4f} ms/superstep of "
+          f"{busy_ms:.4f} ms/superstep device busy", flush=True)
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device {ms:9.4f} ms/superstep  {name[:110]}", flush=True)
+    return launches
+
+
+def phase_fused_bench_shape(smi: str):
+    """Phase 6: the fused trainer at bench.py's shape (the JAX package's
+    `_bench_minatar_fused`): 2 warm + 6 timed dispatches."""
+    import torch
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    cfg = apply_overrides(load_config(FUSED_PATH["preset"]), [
+        "train.chunk_len=128", "train.updates_per_chunk=256",
+        "train.supersteps_per_dispatch=1", "train.warmup_env_steps=0",
+        "train.total_env_steps=1000000000", "train.log_interval=1000000000"])
+    result_dir = ROOT / "results" / "chip_smoke_fused_bench_shape"
+    shutil.rmtree(result_dir, ignore_errors=True)
+    trainer = FusedApexTrainer(cfg, str(result_dir), device="cuda")
+    gather.reset_counts()
+    for _ in range(2):                  # warm; fills the replay too
+        m = trainer.superstep()
+    m["loss"].item()
+    dispatches = 6
+    s0 = trainer.env_steps
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        m = trainer.superstep()
+    loss = m["loss"].item()             # waits for the device
+    wall = time.perf_counter() - t0
+    steps = trainer.env_steps - s0
+    check(math.isfinite(loss), f"bench shape: loss {loss}")
+    check(steps == dispatches * 128 * 256, f"bench shape: {steps} env steps")
+    check(gather.LAUNCHES["window_gather"] == 3 * 256 * (2 + dispatches)
+          and not any(gather.PLAIN_CALLS.values()),
+          f"bench shape: launches {gather.LAUNCHES}, plain "
+          f"{gather.PLAIN_CALLS}")
+    print(f"fused bench shape (L=128, 256 updates per chunk, S=1, batch 256, "
+          f"256 lanes; {dispatches} timed dispatches after 2 warm): "
+          f"{steps / wall:.1f} env-steps/s, "
+          f"{dispatches * 256 / wall:.2f} updates/s, "
+          f"{wall / dispatches * 1e3:.1f} ms/dispatch, last loss {loss:.6g}"
+          f"  [{smi}]", flush=True)
+
+
+def phase_fused_others():
+    """Phase 7: the first full-width dispatch of the other fused paths."""
+    for path in FUSED_OTHERS:
+        trainer, _ = run_fused_path(path)
+        mc, ac = trainer.model_cfg, trainer.algo_cfg
+        if path["preset"].endswith("iqn"):
+            check(mc.is_iqn and ac.algo == "iqn", f"not IQN: {mc} {ac}")
+        if path["preset"].endswith("r2d2"):
+            check(mc.lstm_size == 128 and (ac.burn_in, ac.seq_len, ac.n_step)
+                  == (20, 40, 5), f"not the R2D2 preset: {mc} {ac}")
+            ring = trainer.replay_state.storage["rnn_h"]
+            check(ring.shape == (256, 512, 128) and bool(ring.abs().sum() > 0),
+                  f"rnn_h ring {ring.shape} empty")
+        del trainer
+
+
 def _chunks(rng, E, L, obs_shape, num_actions, lstm_size=0, n=6):
     import numpy as np
     out = []
@@ -507,6 +803,112 @@ def phase_small_parity(devices=("cpu", "cuda")):
         _compare_updates(tag, out, 1e-4)
 
 
+def _to_device(x, dev):
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_device(v, dev) for v in x]
+    return x.to(dev)
+
+
+def phase_fused_parity(devices=("cpu", "cuda")):
+    """One fused superstep (8 act steps, the insert, 2 updates) on the
+    card vs the same on the CPU, on the same injected draws, in float32
+    with TF32 off. Acting is at eps = 1, so the ring's bytes must be
+    equal; the updates are compared as phase_small_parity's."""
+    import torch
+    from rltime_tpu_torch.acting.device_actor import (
+        act_draws, init_device_actor_state,
+    )
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, L, K, B = 8, 8, 2, 16
+    cfg = {
+        "seed": 0,
+        "env": {"type": "minatar_breakout", "num_envs": E, "time_limit": 12},
+        "model": {"torso": "minatar_cnn", "cnn_channels": [8], "cnn_fc": 32,
+                  "head": "dueling", "dueling_hidden": 16},
+        "replay": {"steps_per_env": 64},
+        "algo": {"algo": "dqn", "batch_size": B, "n_step": 3, "lr": 1e-3,
+                 "adam_eps": 1e-3, "grad_clip": 0.05,
+                 "target_update_freq": 1, "debug_outputs": True},
+        "exploration": {"type": "epsilon_greedy", "eps_start": 1.0,
+                        "eps_end": 1.0},
+        "train": {"warmup_env_steps": 0, "chunk_len": L,
+                  "updates_per_chunk": K, "trainer": "fused"},
+    }
+    g = torch.Generator().manual_seed(0)
+    out, rings = [], []
+    draws = None
+    for dev in devices:
+        result_dir = ROOT / "results" / f"chip_smoke_fused_parity_{dev}"
+        shutil.rmtree(result_dir, ignore_errors=True)
+        t = FusedApexTrainer(cfg, str(result_dir), device=dev)
+        if draws is None:       # drawn once, on the CPU
+            reset = t.env.reset_draws(E, g, "cpu")
+            draws = dict(
+                act=[dict(act=act_draws(t.model_cfg, E, g, "cpu"),
+                          env=t.env.step_draws(E, g, "cpu"))
+                     for _ in range(L)],
+                update=[dict(u=torch.rand(B, generator=g))
+                        for _ in range(K)])
+        t.actor_state = init_device_actor_state(
+            t.env, t.model_cfg, E, 0, t.device,
+            reset_draws=_to_device(reset, t.device))
+        m = t.superstep([_to_device(draws, t.device)])
+        out.append((m, t.replay_state, t.train_state))
+        rings.append({k: v.cpu() for k, v in t.replay_state.storage.items()})
+        t.logger.close()
+    for name, ring in rings[0].items():
+        check(torch.equal(ring, rings[1][name]),
+              f"fused parity: ring {name} differs")
+    check(bool(rings[0]["done"].any()), "fused parity: no episode ended")
+    _compare_updates("fused superstep", out, 1e-4)
+
+
+def phase_env_parity(steps: int = 150, E: int = 64):
+    """Every device env on the card vs on the CPU: the same actions and
+    the same injected draws for `steps` steps with a short time limit;
+    every state field, reward, flag and the final observation must be
+    bit-equal (CartPole, float math: to 1e-5)."""
+    import torch
+    from rltime_tpu_torch.envs.device import DeviceCartPole
+    from rltime_tpu_torch.envs.minatar import MINATAR_ENVS
+    envs = dict(MINATAR_ENVS, cartpole=DeviceCartPole)
+    g = torch.Generator().manual_seed(0)
+    for name, cls in envs.items():
+        env = cls(time_limit=40)
+        reset = env.reset_draws(E, g, "cpu")
+        states = {dev: env.reset(E, _to_device(reset, dev), dev)
+                  for dev in ("cpu", "cuda")}
+        n_done = 0
+        for t in range(steps):
+            draws = env.step_draws(E, g, "cpu")
+            actions = torch.randint(0, env.num_actions, (E,), generator=g,
+                                    dtype=torch.int32)
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                states[dev], *outs[dev] = env.step(
+                    states[dev], actions.to(dev), _to_device(draws, dev))
+            both = [dict(states[dev], reward=outs[dev][0],
+                         terminated=outs[dev][1], truncated=outs[dev][2])
+                    for dev in ("cpu", "cuda")]
+            for k, v in both[0].items():
+                w = both[1][k].cpu()
+                same = (torch.allclose(v, w, rtol=1e-5, atol=1e-5)
+                        if name == "cartpole" and v.is_floating_point()
+                        else torch.equal(v, w))
+                check(same, f"env parity: {name}.{k} differs at step {t}")
+            n_done += int((outs["cpu"][1] | outs["cpu"][2]).sum())
+        obs = [env.observe(states[dev]).cpu() for dev in ("cpu", "cuda")]
+        check(torch.allclose(obs[0].float(), obs[1].float(), atol=1e-5),
+              f"env parity: {name} observation differs")
+        check(n_done > 0, f"env parity: {name} never reset")
+        print(f"env parity cuda vs cpu: {name} equal over {steps} steps of "
+              f"{E} lanes ({n_done} resets)", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "rltime_tpu_torch" / "__init__.py").is_file():
         fail(f"no rltime_tpu_torch package beside {Path(__file__).name}")
@@ -517,30 +919,55 @@ def main() -> int:
     smi = phase_environment()
     kern = phase_kernels(smi)
     trainer, dqn_launches = phase_dqn_path()
-    phase_steady_state(trainer, smi, chunks=16, profiled=4)
+    phase_steady_state(trainer, smi, chunks=8, profiled=3)
     del trainer
     torch.cuda.empty_cache()
     trainer, r2d2_launches = phase_r2d2_path()
-    phase_steady_state(trainer, smi, chunks=16, profiled=3)
+    phase_steady_state(trainer, smi, chunks=8, profiled=3)
     del trainer
     torch.cuda.empty_cache()
+    fused_launches = phase_fused_path(smi)
+    phase_fused_bench_shape(smi)
+    phase_fused_others()
+    torch.cuda.empty_cache()
     phase_small_parity()
+    phase_fused_parity()
+    phase_env_parity()
 
-    def entry(name, source, replaces, launches, main_tag):
-        _, ms, plain_ms = kern[name][main_tag]
+    def entry(name, source, replaces, by_path, main_path, main_tag):
+        """`launches` is the count on `main_path`'s counted run; the
+        times and the bound are the kernel's at `main_tag`, and `shapes`
+        holds them for every shape checked."""
+        shapes = kern[name]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(err for err, _, _ in kern[name].values()),
-                "ms": ms, "plain_ms": plain_ms}
+                "replaces": replaces, "launches": by_path[main_path],
+                "launches_by_path": by_path,
+                "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+                "ms": shapes[main_tag]["ms"],
+                "plain_ms": shapes[main_tag]["plain_ms"],
+                "bound_ms": shapes[main_tag]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": shapes[main_tag]["library_ms"],
+                "shape": main_tag, "shapes": shapes}
 
+    def by_path(name):
+        return {DQN_PATH["preset"]: dqn_launches[name],
+                R2D2_PATH["preset"]: r2d2_launches[name],
+                FUSED_PATH["preset"]: fused_launches[name]}
+
+    # a gather does no arithmetic: each is bound by the bytes it moves
     record = {"kernels": [
         entry("union_gather", "rltime_tpu_torch/csrc/union_gather.cu",
               "rltime_tpu/ops/pallas_gather.py:152",
-              dqn_launches["union_gather"], "B=256 W=7 84x84 u8"),
+              by_path("union_gather"), DQN_PATH["preset"],
+              "B=256 W=7 84x84 u8"),
         entry("window_gather", "rltime_tpu_torch/csrc/window_gather.cu",
               "rltime_tpu/ops/pallas_gather.py:50",
-              r2d2_launches["window_gather"], "B=64 W=128 84x84 u8"),
+              by_path("window_gather"), FUSED_PATH["preset"],
+              "B=64 W=128 84x84 u8"),
     ]}
+    for k in record["kernels"]:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,16 +5,28 @@ its module paths so each counterpart is easy to find. It imports torch
 and numpy only (never jax, flax, optax, orbax or rltime_tpu), because
 the GPU machine it targets has none of them.
 
-Ported so far (ROADMAP.md): the default host `Trainer` for the
-feed-forward DQN path and the R2D2 path — dense PER replay with the
-window gathers as hand-written CUDA kernels (`csrc/window_gather.cu`
-for every strip, stack done window and the R2D2 frame sequence,
-`csrc/union_gather.cu`
-for the FF frame-stack union), the MLP and Nature-CNN torsos with
-linear or dueling heads and an optional LSTM, n-step double-Q Huber
-loss, R2D2 burn-in from the stored carry with n-step or lambda targets
-through value rescaling, Adam with optax's global-norm clip, and
-checkpoints.
+Ported so far (ROADMAP.md):
+  * the default host `Trainer` for the feed-forward DQN/IQN path and the
+    R2D2 path: dense PER replay with the window gathers as hand-written
+    CUDA kernels (`csrc/window_gather.cu` for every strip, stack done
+    window and the R2D2 frame sequence, `csrc/union_gather.cu` for the
+    FF frame-stack union), the MLP, Nature-CNN and MinAtar-CNN torsos
+    with linear, dueling or IQN heads and an optional LSTM, n-step
+    double-Q Huber and IQN quantile-Huber losses, R2D2 burn-in from the
+    stored carry with n-step or lambda targets through value rescaling,
+    Adam with optax's global-norm clip, and checkpoints;
+  * the fused on-device path (`train.trainer="fused"`, every
+    `configs/minatar_*.json` preset): device-resident envs
+    (`envs/device.py` CartPole, `envs/minatar*.py` Breakout, Asterix,
+    Freeway, Space Invaders, Seaquest), the on-device rollout
+    (`acting/device_actor.py`) and `parallel/fused.py:FusedApexTrainer`
+    on one device, with no host sync inside a dispatch.
+
+    python -m rltime_tpu_torch.train minatar_breakout_dqn   # on the card
+    python -m rltime_tpu_torch.train minatar_breakout_dqn --device cpu \
+        --env.num_envs=8 --algo.batch_size=8 --train.total_env_steps=3000 \
+        --train.warmup_env_steps=1000 --train.updates_per_chunk=2
+
 Options not ported yet raise `NotImplementedError` via `not_ported`.
 """
 

@@ -12,8 +12,9 @@ The raw frames accumulate in a device chunk buffer and go to the replay
 from there, so they cross to the device once. For a recurrent policy
 the carry CONSUMED by each step (after the `done_prev` reset: what R2D2
 burn-in resumes from) is written to device chunk buffers `rnn_c` and
-`rnn_h`; the carry never crosses to the host. Exploration draws come
-from the actor's own generator and enter the act step as tensors.
+`rnn_h`; the carry never crosses to the host. Exploration draws
+(and the IQN acting taus) come from the actor's own generator and enter
+the act step as tensors.
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
     def act_step(model: QPolicy, state: ActorDeviceState,
                  obs: torch.Tensor, done_prev: torch.Tensor,
                  eps: torch.Tensor, t_in_chunk: int,
-                 explore_u: torch.Tensor, random_a: torch.Tensor):
+                 explore_u: torch.Tensor, random_a: torch.Tensor,
+                 taus: Optional[torch.Tensor] = None):
         """One lockstep policy step.
 
         Args:
@@ -74,6 +76,7 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
           t_in_chunk: column of the chunk accumulator to fill.
           explore_u: (E,) uniforms in [0, 1); a lane explores iff u < eps.
           random_a: (E,) int actions taken where a lane explores.
+          taus: (E, num_tau_policy) acting quantile fractions (IQN).
         Returns (actions (E,) int32, state, info dict).
         """
         E = obs.shape[0]
@@ -86,6 +89,7 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
         state.obs_chunk[:, t_in_chunk] = obs
 
         net_in = frames.reshape(E, -1) if flatten_stack else frames
+        head_kw = {"taus": taus} if cfg.is_iqn else {}
         if cfg.recurrent:
             # reset on the episode boundary; store the carry THIS step
             # consumes (R2D2 storage)
@@ -93,9 +97,9 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
             rnn = (state.rnn[0] * rmask, state.rnn[1] * rmask)
             state.rnn_chunk[0][:, t_in_chunk] = rnn[0]
             state.rnn_chunk[1][:, t_in_chunk] = rnn[1]
-            q, state.rnn = model(net_in, rnn)
+            q, state.rnn = model(net_in, rnn, **head_kw)
         else:
-            q = model(net_in)
+            q = model(net_in, **head_kw)
         qv = q_values(cfg, q)
         greedy = torch.argmax(qv, dim=-1).to(torch.int32)
         actions = torch.where(explore_u < eps, random_a.to(torch.int32),
@@ -156,11 +160,13 @@ class Actor:
             explore_u = torch.rand((E,), generator=gen, device=dev)
             random_a = torch.randint(0, self.cfg.num_actions, (E,),
                                      generator=gen, device=dev)
+            taus = (torch.rand((E, self.cfg.num_tau_policy), generator=gen,
+                               device=dev) if self.cfg.is_iqn else None)
             actions, self.state, info = self._act_step(
                 model, self.state,
                 torch.from_numpy(np.ascontiguousarray(self.obs)).to(dev),
                 torch.from_numpy(self.done_prev).to(dev),
-                torch.from_numpy(eps).to(dev), i, explore_u, random_a)
+                torch.from_numpy(eps).to(dev), i, explore_u, random_a, taus)
             actions_np = actions.cpu().numpy()
             next_obs, rew, term, trunc = self.env.step(actions_np)
             done = term | trunc

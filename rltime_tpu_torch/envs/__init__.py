@@ -1,7 +1,10 @@
-"""Host environments carried from `rltime_tpu/envs` (numpy only).
+"""Environments carried from `rltime_tpu/envs`.
 
-Only the deterministic `counting_env` is ported so far; CartPole, gym,
-Atari, the native C++ lanes and the device envs are ROADMAP.md items.
+Host side (numpy only): the deterministic `counting_env`. Device side
+(tensor ops on the training device, `envs/device.py` contract):
+`cartpole_device` and the five `minatar_<game>` envs. CartPole on the
+host, gym, Atari and the native C++ lanes are ROADMAP.md items.
 """
 from rltime_tpu_torch.envs.base import VecEnv, EnvSpec  # noqa: F401
 from rltime_tpu_torch.envs.fake import CountingVecEnv  # noqa: F401
+from rltime_tpu_torch.envs import device, minatar  # noqa: F401  (register)

@@ -8,7 +8,10 @@ The JAX package's `QPolicy` params (`{"params": {"torso_mod": ...,
     after the convs needs no row permutation because the port flattens
     its conv output in NHWC order too (models/torso.py);
   * the dueling head's `Dense_0..3` follow flax's call order: V hidden,
-    V out, A hidden, A out;
+    V out, A hidden, A out; the IQN head has `tau_embed` and then
+    `Dense_0..1` (hidden, out), or the dueling four when `iqn_dueling`;
+  * the MinAtar CNN's `Conv_i` and `Dense_0` map as the Nature CNN's
+    (its input channels are frame-major `f * C + c` on both sides);
   * the LSTM (`lstm`: flax `OptimizedLSTMCell`) keeps eight Dense
     blocks: `ii, if, ig, io` are (in, H) kernels with no bias, `hi, hf,
     hg, ho` (H, H) kernels with a bias. Their transposes stack, in
@@ -38,11 +41,16 @@ def _entries(cfg: ModelConfig) -> List[_Entry]:
         out += [(("torso_mod", f"Conv_{i}"), f"torso.convs.{i}", "conv")
                 for i in range(len(cfg.cnn_channels))]
         out.append((("torso_mod", "Dense_0"), "torso.fc", "dense"))
+    if cfg.head == "iqn":
+        out.append((("head_mod", "tau_embed"), "head.tau_embed", "dense"))
     if cfg.head == "linear":
-        out.append((("head_mod", "Dense_0"), "head.out", "dense"))
+        names = ("out",)
+    elif cfg.head == "dueling" or cfg.iqn_dueling:
+        names = ("v_hidden", "v_out", "a_hidden", "a_out")
     else:
-        for i, name in enumerate(("v_hidden", "v_out", "a_hidden", "a_out")):
-            out.append((("head_mod", f"Dense_{i}"), f"head.{name}", "dense"))
+        names = ("hidden", "out")
+    out += [(("head_mod", f"Dense_{i}"), f"head.{name}", "dense")
+            for i, name in enumerate(names)]
     return out
 
 

@@ -20,9 +20,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from rltime_tpu_torch import not_ported
-from rltime_tpu_torch.models.heads import DuelingQHead, LinearQHead
+from rltime_tpu_torch.models.heads import (
+    DuelingQHead, IQNHead, LinearQHead,
+)
 from rltime_tpu_torch.models.torso import (
-    MLPTorso, NatureCNNTorso, lecun_normal_,
+    MLPTorso, MinAtarCNNTorso, NatureCNNTorso, lecun_normal_,
 )
 
 RnnState = Tuple[torch.Tensor, torch.Tensor]      # (c, h), each (B, H) f32
@@ -32,31 +34,26 @@ RnnState = Tuple[torch.Tensor, torch.Tensor]      # (c, h), each (B, H) f32
 class ModelConfig:
     """Static model hyperparameters (same fields as the JAX version)."""
     num_actions: int
-    torso: str = "mlp"                  # "mlp" | "nature_cnn"
+    torso: str = "mlp"                  # "mlp" | "nature_cnn" | "minatar_cnn"
     mlp_hidden: Tuple[int, ...] = (64, 64)
     cnn_channels: Tuple[int, ...] = (32, 64, 64)
     cnn_fc: int = 512
     lstm_size: int = 0                  # 0 => feed-forward
-    head: str = "linear"                # "linear" | "dueling"
+    head: str = "linear"                # "linear" | "dueling" | "iqn"
     dueling_hidden: int = 256
     iqn_embed_dim: int = 64
     iqn_dueling: bool = False
-    num_tau: int = 64
-    num_tau_prime: int = 64
-    num_tau_policy: int = 32
+    num_tau: int = 64                   # training prediction taus
+    num_tau_prime: int = 64             # training target taus
+    num_tau_policy: int = 32            # acting taus (risk-neutral mean)
     compute_dtype: str = "float32"      # "float32" | "bfloat16"
     channels_last: bool = False
     space_to_depth: bool = False
 
     def __post_init__(self):
-        if self.torso == "minatar_cnn":
-            raise not_ported("model.torso='minatar_cnn'",
-                             "IQN/MinAtar models")
-        if self.torso not in ("mlp", "nature_cnn"):
+        if self.torso not in ("mlp", "nature_cnn", "minatar_cnn"):
             raise ValueError(f"unknown torso {self.torso!r}")
-        if self.head == "iqn":
-            raise not_ported("model.head='iqn'", "IQN/MinAtar models")
-        if self.head not in ("linear", "dueling"):
+        if self.head not in ("linear", "dueling", "iqn"):
             raise ValueError(f"unknown head {self.head!r}")
         if self.channels_last:
             raise not_ported("model.channels_last", "remaining options")
@@ -70,6 +67,10 @@ class ModelConfig:
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
                 else torch.float32)
+
+    @property
+    def is_iqn(self) -> bool:
+        return self.head == "iqn"
 
     @property
     def recurrent(self) -> bool:
@@ -125,11 +126,14 @@ class LSTMCell(nn.Module):
 
 class QPolicy(nn.Module):
     """obs (B, *in_shape) -> q (B, A), or (q, new_rnn_state) when
-    recurrent (`forward(obs, rnn_state)`).
+    recurrent (`forward(obs, rnn_state)`). With the IQN head q is the
+    (B, N, A) quantile values at `taus` (B, N), which it requires.
 
     `in_shape` is one sample's model input: (F, H, W) frames for the
-    Nature CNN, (D,) for the MLP. Parameters are created on the CPU from
-    `generator`; move the module with `.to(device)`."""
+    Nature CNN, (F, H, W, C) for the MinAtar CNN (which also takes a
+    device env's raw (B, H, W, C) planes), (D,) for the MLP. Parameters
+    are created on the CPU from `generator`; move the module with
+    `.to(device)`."""
 
     def __init__(self, cfg: ModelConfig, in_shape: Sequence[int],
                  generator: Optional[torch.Generator] = None):
@@ -138,27 +142,41 @@ class QPolicy(nn.Module):
         if cfg.torso == "mlp":
             self.torso = MLPTorso(int(torch.Size(in_shape).numel()),
                                   cfg.mlp_hidden, cfg.dtype, generator)
-        else:
+        elif cfg.torso == "nature_cnn":
             self.torso = NatureCNNTorso(in_shape, cfg.cnn_channels,
                                         cfg.cnn_fc, cfg.dtype, generator)
+        else:
+            self.torso = MinAtarCNNTorso(in_shape, cfg.cnn_channels,
+                                         cfg.cnn_fc, cfg.dtype, generator)
         feat = self.torso.out_dim
         if cfg.recurrent:
             self.lstm = LSTMCell(feat, cfg.lstm_size, generator)
             feat = cfg.lstm_size
         if cfg.head == "linear":
             self.head = LinearQHead(feat, cfg.num_actions, generator)
-        else:
+        elif cfg.head == "dueling":
             self.head = DuelingQHead(feat, cfg.num_actions,
                                      cfg.dueling_hidden, cfg.dtype,
                                      generator)
+        else:
+            self.head = IQNHead(feat, cfg.num_actions, cfg.iqn_embed_dim,
+                                cfg.iqn_dueling, cfg.dueling_hidden,
+                                cfg.dtype, generator)
 
     def forward(self, obs: torch.Tensor,
-                rnn_state: Optional[RnnState] = None):
+                rnn_state: Optional[RnnState] = None,
+                taus: Optional[torch.Tensor] = None):
         feat = self.torso(obs)
-        if not self.cfg.recurrent:
-            return self.head(feat)
-        state = self.lstm.step(self.lstm.input_proj(feat), rnn_state)
-        return self.head(state[1]), state
+        if self.cfg.recurrent:
+            rnn_state = self.lstm.step(self.lstm.input_proj(feat), rnn_state)
+            feat = rnn_state[1]
+        if self.cfg.is_iqn:
+            if taus is None:
+                raise ValueError("IQN head requires taus")
+            q = self.head(feat, taus)
+        else:
+            q = self.head(feat)
+        return (q, rnn_state) if self.cfg.recurrent else q
 
 
 def initial_rnn_state(cfg: ModelConfig, batch: int,
@@ -202,5 +220,5 @@ def unroll(model: QPolicy, obs_seq: torch.Tensor,
 
 
 def q_values(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
-    """Action values (the IQN tau mean is not ported: identity)."""
-    return q
+    """Risk-neutral action values: the mean over the tau axis for IQN."""
+    return torch.mean(q, dim=1) if cfg.is_iqn else q

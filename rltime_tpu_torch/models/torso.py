@@ -1,4 +1,5 @@
-"""Embedding torsos: MLP and Nature-CNN (port of `models/torso.py`).
+"""Embedding torsos: MLP, MinAtar CNN and Nature CNN (port of
+`models/torso.py`).
 
 Compute may run in bfloat16 while the parameters stay float32: each
 layer casts its input and parameters to the compute dtype, as flax's
@@ -55,6 +56,51 @@ class MLPTorso(nn.Module):
         x = x.to(self.compute_dtype).reshape(x.shape[0], -1)
         for lin in self.layers:
             x = F.relu(linear(x, lin, self.compute_dtype))
+        return x.to(torch.float32)
+
+
+class MinAtarCNNTorso(nn.Module):
+    """MinAtar conv torso (Young & Tian 2019): 3x3/1 conv(s) + FC.
+
+    Input: (B, H, W, C) binary planes straight from a device env (uint8
+    0/1: cast, NOT divided by 255), or (B, F, H, W, C) from the replay
+    gather, whose frame axis merges into the channels frame-major (as
+    the JAX version's `moveaxis(x, 1, -2).reshape(b, h, w, f * c)`;
+    MinAtar uses F=1). `in_shape` is (F, H, W, C). The conv runs NCHW
+    and its output is flattened in NHWC order, as flax's is, so the FC
+    weight is the transposed flax kernel with no row permutation."""
+
+    def __init__(self, in_shape: Sequence[int],
+                 channels: Sequence[int] = (16,), fc: int = 128,
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        f, h, w, c = in_shape
+        c = f * c
+        convs = []
+        for ch in channels:
+            conv = nn.Conv2d(c, ch, 3)
+            lecun_normal_(conv.weight, 9 * c, generator)
+            nn.init.zeros_(conv.bias)
+            convs.append(conv)
+            c, h, w = ch, h - 2, w - 2
+        self.convs = nn.ModuleList(convs)
+        self.fc = dense(c * h * w, fc, generator)
+        self.out_dim = fc
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if x.ndim == 5:
+            b, f, h, w, c = x.shape
+            x = x.permute(0, 1, 4, 2, 3).reshape(b, f * c, h, w)
+        else:
+            x = x.permute(0, 3, 1, 2)
+        x = x.to(dt)
+        for conv in self.convs:
+            x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt)))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC flatten
+        x = F.relu(linear(x, self.fc, dt))
         return x.to(torch.float32)
 
 

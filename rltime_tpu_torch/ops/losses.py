@@ -1,7 +1,5 @@
-"""Huber / double-DQN target / weighted TD loss / sequence priority.
-
-Port of the `rltime_tpu/ops/losses.py` functions the DQN and R2D2
-updates call; the IQN quantile-Huber loss is a ROADMAP.md item.
+"""Huber / double-DQN target / weighted TD loss / IQN quantile-Huber /
+sequence priority (port of `rltime_tpu/ops/losses.py`).
 Per-sample |TD| is returned for PER.
 """
 from __future__ import annotations
@@ -35,6 +33,28 @@ def q_learning_loss(q, actions, targets, weights=None, kappa: float = 1.0):
     if weights is not None:
         per_sample = per_sample * weights
     return torch.mean(per_sample), torch.abs(td)
+
+
+def quantile_huber_loss(quantiles: torch.Tensor, taus: torch.Tensor,
+                        target_quantiles: torch.Tensor, weights=None,
+                        kappa: float = 1.0):
+    """IQN pairwise quantile-Huber (pinball) loss.
+
+    quantiles (B, N): predicted quantile values of the taken action at
+    fractions taus (B, N); target_quantiles (B, N'): target samples (no
+    gradient flows into them); weights: optional (B,) importance
+    weights. Returns (scalar_loss, per-sample mean |pairwise TD| (B,),
+    the priority signal)."""
+    target = target_quantiles.detach()
+    # pairwise residuals: u[b, j, i] = target[b, j] - pred[b, i]
+    u = target[:, :, None] - quantiles[:, None, :]
+    indicator = (u < 0.0).to(quantiles.dtype)
+    rho = torch.abs(taus[:, None, :] - indicator) * huber(u, kappa) / kappa
+    # sum over prediction quantiles i, mean over target samples j
+    loss = torch.sum(torch.mean(rho, dim=1), dim=-1)
+    if weights is not None:
+        loss = loss * weights
+    return torch.mean(loss), torch.mean(torch.abs(u), dim=(1, 2))
 
 
 def sequence_priority(td_abs: torch.Tensor, mask: torch.Tensor,

@@ -4,8 +4,10 @@
         [--device cuda|cpu] [--result-dir DIR] [--resume]
 
 `<config>` is a JSON path or a preset name under the repository's
-shared `configs/` (e.g. `pong_dqn_counting`). Dotted overrides compose
-onto the loaded config. `--device` defaults to `cuda` and raises when
+shared `configs/` (e.g. `pong_dqn_counting`, `minatar_breakout_dqn`).
+`train.trainer` picks the host `Trainer` (default) or the fused
+on-device `FusedApexTrainer` ("fused": every MinAtar preset). Dotted
+overrides compose onto the loaded config. `--device` defaults to `cuda` and raises when
 no card is present; the CPU runs only when asked for.
 """
 from __future__ import annotations
@@ -32,8 +34,6 @@ def run(argv=None):
     if bad:
         parser.error(f"unrecognized arguments: {' '.join(bad)}")
 
-    from rltime_tpu_torch.training.trainer import Trainer
-
     cfg = load_config(args.config)
     cfg = apply_overrides(cfg, overrides)
     if args.resume:
@@ -44,6 +44,12 @@ def run(argv=None):
         "results", f"{name}-torch-{time.strftime('%Y%m%d-%H%M%S')}")
     print(f"result dir: {result_dir}")
     print(json.dumps(cfg, indent=2))
+    # {"train": {"trainer": "fused"}} selects the on-device superstep
+    # (device envs); "apex" is refused by TrainLoopConfig
+    if cfg.get("train", {}).get("trainer", "default") == "fused":
+        from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+        return FusedApexTrainer(cfg, result_dir, device=args.device).train()
+    from rltime_tpu_torch.training.trainer import Trainer
     return Trainer(cfg, result_dir, device=args.device).train()
 
 

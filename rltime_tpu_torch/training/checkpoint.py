@@ -4,7 +4,8 @@
 generator, update counter} plus host-side counters, under
 `<result_dir>/checkpoints/<env_step>/state.pt`, the same directory
 layout as the JAX version's orbax checkpoints. Replay contents are
-optionally included. The best-checkpoint rule (`maybe_record_best`,
+optionally included, and a trainer may add entries of its own (the
+fused trainer's actor state). The best-checkpoint rule (`maybe_record_best`,
 `best.json`) is the JAX version's, unchanged.
 """
 from __future__ import annotations
@@ -29,7 +30,10 @@ def _step_dir(result_dir: str, step: int) -> str:
 
 def save(result_dir: str, step: int, train_state: TrainState,
          host_state: Dict[str, Any],
-         replay_state: Optional[ReplayState] = None) -> str:
+         replay_state: Optional[ReplayState] = None,
+         extra: Optional[Dict[str, Any]] = None) -> str:
+    """`extra`: further top-level entries (tensors, numbers, nested
+    dicts and lists of them), e.g. the fused trainer's actor state."""
     path = _step_dir(result_dir, step)
     os.makedirs(path, exist_ok=True)
     ckpt = {
@@ -45,6 +49,7 @@ def save(result_dir: str, step: int, train_state: TrainState,
             "storage": replay_state.storage, "t": replay_state.t,
             "tree": replay_state.tree,
             "max_priority": replay_state.max_priority}
+    ckpt.update(extra or {})
     tmp = os.path.join(path, _FILE + ".tmp")
     torch.save(ckpt, tmp)
     os.replace(tmp, os.path.join(path, _FILE))
@@ -80,6 +85,17 @@ def load_train_state(train_state: TrainState, ckpt: Dict[str, Any]) -> None:
     train_state.optimizer.load_state_dict(ckpt["optimizer"])
     train_state.generator.set_state(ckpt["generator"])
     train_state.updates = int(ckpt["updates"])
+
+
+def load_replay_state(replay_state: ReplayState, saved: Dict[str, Any]
+                      ) -> None:
+    """Copy a restored checkpoint's replay into a live one, in place."""
+    for name, arr in saved["storage"].items():
+        replay_state.storage[name].copy_(arr)
+    device = replay_state.tree.device
+    replay_state.t = int(saved["t"])
+    replay_state.tree = saved["tree"].to(device)
+    replay_state.max_priority = saved["max_priority"].to(device)
 
 
 def record_best(result_dir: str, step: int, score: float,

@@ -1,7 +1,11 @@
-"""Learner: the feed-forward DQN update step (port of `training/learner.py`).
+"""Learner: the feed-forward DQN/IQN update step (port of
+`training/learner.py`).
 
-One update: PER sample -> frame-stack union gather (CUDA kernel) ->
-n-step double-Q Huber loss -> backward -> optax-rule global-norm clip ->
+One update: PER sample -> frame-stack union gather (CUDA kernel; at
+frame_stack=1 the two single-frame gathers are plain advanced indexing,
+as the JAX version leaves them to XLA) -> n-step strips (window_gather
+kernel) -> n-step double-Q Huber loss, or the IQN quantile-Huber loss
+over freshly drawn taus -> backward -> optax-rule global-norm clip ->
 Adam -> periodic target sync -> priority write-back. Every tensor stays
 on the device; metrics come back as device scalars, read only when the
 trainer logs.
@@ -15,7 +19,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -65,9 +69,7 @@ class AlgoConfig:
     debug_outputs: bool = False   # sampled leaves + per-sample TD in metrics
 
     def __post_init__(self):
-        if self.algo == "iqn":
-            raise not_ported("algo.algo='iqn'", "IQN/MinAtar models")
-        if self.algo not in ("dqn", "r2d2"):
+        if self.algo not in ("dqn", "iqn", "r2d2"):
             raise ValueError(f"unknown algo {self.algo!r}")
         if self.use_lambda and self.algo == "dqn":
             raise not_ported("algo.use_lambda with algo='dqn' (FF Q(lambda))",
@@ -88,7 +90,7 @@ class TrainState:
     model: QPolicy                 # online network
     target: QPolicy                # target network (no grad)
     optimizer: torch.optim.Adam
-    generator: torch.Generator     # PER sampling uniforms
+    generator: torch.Generator     # PER sampling uniforms, IQN taus
     updates: int = 0               # learner update counter
 
 
@@ -188,23 +190,16 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
                      frame_stack: int, flatten: bool):
     """Build the learner update.
 
-    Returns fn(train_state, replay_state, beta, u=None) ->
+    Returns fn(train_state, replay_state, beta, u=None, taus=None) ->
     (train_state, replay_state, metrics). `u` (B,) injects the PER
-    uniforms (tests); otherwise they come from train_state.generator."""
+    uniforms and, for IQN, `taus` the three tau sets
+    dict(taus (B, num_tau), taus_prime (B, num_tau_prime), taus_policy
+    (B, num_tau_policy)) (tests); otherwise both come from
+    train_state.generator, the PER uniforms first."""
     cfg = algo_cfg
     B = cfg.batch_size
 
-    def update_step(state: TrainState, rstate: ReplayState, beta,
-                    u: Optional[torch.Tensor] = None):
-        idx = replay_sample_indices(replay_cfg, rstate, B, beta,
-                                    generator=state.generator, u=u)
-        batch = _gather_batch(replay_cfg, rstate, idx["env"], idx["col"],
-                              frame_stack, cfg.n_step, flatten)
-        trunc_ok = batch["trunc_ok"]
-        if not cfg.exact_truncation:
-            trunc_ok = torch.ones_like(trunc_ok)
-        weight = idx["weight"] * trunc_ok
-
+    def dqn_loss(state: TrainState, batch, weight):
         model, target = state.model, state.target
         q_t = model(batch["obs"])
         with torch.no_grad():
@@ -216,13 +211,62 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
             y = losses.double_q_target(q_tn_online, q_tn_target, rew, disc)
         loss, td_abs = losses.q_learning_loss(
             q_t, batch["action"], y, weights=weight, kappa=cfg.huber_kappa)
+        return loss, td_abs, torch.mean(torch.max(q_t.detach(),
+                                                  dim=-1).values)
+
+    def iqn_loss(state: TrainState, batch, weight,
+                 taus: Optional[Dict[str, torch.Tensor]]):
+        model, target = state.model, state.target
+        if taus is None:
+            dev, gen = weight.device, state.generator
+            taus = {name: torch.rand((B, n), generator=gen, device=dev)
+                    for name, n in (
+                        ("taus", cfg.num_tau),
+                        ("taus_prime", cfg.num_tau_prime),
+                        ("taus_policy", model.cfg.num_tau_policy))}
+        quant_t = model(batch["obs"], taus=taus["taus"])     # (B, N, A)
+        action = batch["action"].long()[:, None, None]
+        q_sa = torch.gather(
+            quant_t, 2, action.expand(-1, quant_t.shape[1], -1))[..., 0]
+        with torch.no_grad():
+            # a* from the online net's mean over policy taus (double-IQN)
+            src = model if cfg.double_q else target
+            quant_pol = src(batch["next_obs"], taus=taus["taus_policy"])
+            a_star = torch.argmax(torch.mean(quant_pol, dim=1), dim=-1)
+            quant_tn = target(batch["next_obs"], taus=taus["taus_prime"])
+            q_next = torch.gather(
+                quant_tn, 2, a_star[:, None, None].expand(
+                    -1, quant_tn.shape[1], -1))[..., 0]
+            rew, disc = returns.nstep_return(batch["rewards"],
+                                             batch["boundary"], cfg.gamma)
+            target_quant = rew[:, None] + disc[:, None] * q_next
+        loss, td_abs = losses.quantile_huber_loss(
+            q_sa, taus["taus"], target_quant, weights=weight,
+            kappa=cfg.huber_kappa)
+        return loss, td_abs, torch.mean(q_sa.detach())
+
+    def update_step(state: TrainState, rstate: ReplayState, beta,
+                    u: Optional[torch.Tensor] = None,
+                    taus: Optional[Dict[str, torch.Tensor]] = None):
+        idx = replay_sample_indices(replay_cfg, rstate, B, beta,
+                                    generator=state.generator, u=u)
+        batch = _gather_batch(replay_cfg, rstate, idx["env"], idx["col"],
+                              frame_stack, cfg.n_step, flatten)
+        trunc_ok = batch["trunc_ok"]
+        if not cfg.exact_truncation:
+            trunc_ok = torch.ones_like(trunc_ok)
+        weight = idx["weight"] * trunc_ok
+
+        if cfg.algo == "iqn":
+            loss, td_abs, q_metric = iqn_loss(state, batch, weight, taus)
+        else:
+            loss, td_abs, q_metric = dqn_loss(state, batch, weight)
         g_norm = apply_gradients(cfg, state, loss)
 
         td_abs = td_abs.detach()
         replay_update_priorities(replay_cfg, rstate, idx["leaf"], td_abs,
                                  keep=trunc_ok)
-        metrics = dict(loss=loss.detach(),
-                       q=torch.mean(torch.max(q_t.detach(), dim=-1).values),
+        metrics = dict(loss=loss.detach(), q=q_metric,
                        td_abs=torch.mean(td_abs * trunc_ok),
                        grad_norm=g_norm,
                        mean_weight=torch.mean(idx["weight"]))
@@ -237,13 +281,17 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
 
 def make_insert_and_update_step(replay_cfg: ReplayConfig, update_step,
                                 num_updates: int):
-    """{chunk insert + K update steps}; returns the LAST step's metrics."""
+    """{chunk insert + K update steps}; returns the LAST step's metrics.
 
-    def fused(state, rstate, chunk, beta):
+    `draws`, a list of K keyword dicts (`u`, `taus`), injects each
+    update's random draws (tests)."""
+
+    def fused(state, rstate, chunk, beta, draws=None):
         rstate = replay_insert(replay_cfg, rstate, chunk)
         metrics = {}
-        for _ in range(num_updates):
-            state, rstate, metrics = update_step(state, rstate, beta)
+        for k in range(num_updates):
+            state, rstate, metrics = update_step(
+                state, rstate, beta, **(draws[k] if draws else {}))
         return state, rstate, metrics
 
     return fused

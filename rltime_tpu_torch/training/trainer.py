@@ -3,7 +3,10 @@
 Port of the default `rltime_tpu/training/trainer.py:Trainer`. The loop
 alternates {device acting over all lanes, chunk insert, K update
 steps}; the update path never reads back to the host except to log.
-`algo.algo` picks the FF DQN update (`training/learner.py`) or the
+A host env is stepped by `acting/actor.py:Actor`; a device-resident env
+(a handle with `is_device`) by `acting/device_actor.py:DeviceActor`,
+the two-dispatch path that `parallel/fused.py` is held against.
+`algo.algo` picks the FF DQN/IQN update (`training/learner.py`) or the
 R2D2 one (`training/r2d2.py`, whose replay also stores the actor's
 LSTM carry as `rnn_c`/`rnn_h`).
 Built from the same JSON config dict as the JAX trainer, plus an
@@ -22,6 +25,7 @@ import rltime_tpu_torch.envs  # noqa: F401  (registers env types)
 import rltime_tpu_torch.exploration  # noqa: F401  (registers exploration types)
 from rltime_tpu_torch import not_ported
 from rltime_tpu_torch.acting.actor import Actor
+from rltime_tpu_torch.acting.device_actor import DeviceActor
 from rltime_tpu_torch.config.config import build
 from rltime_tpu_torch.device import resolve_device
 from rltime_tpu_torch.history.replay import (
@@ -63,12 +67,13 @@ class TrainLoopConfig:
     interleave_updates: bool = False
 
     def __post_init__(self):
-        if self.trainer in ("fused", "apex"):
-            raise not_ported(f"train.trainer={self.trainer!r}",
-                             "fused.py" if self.trainer == "fused"
-                             else "mesh, apex, pool")
-        if self.trainer != "default":
+        if self.trainer == "apex":
+            raise not_ported("train.trainer='apex'", "mesh, apex, pool")
+        if self.trainer not in ("default", "fused"):
             raise ValueError(f"unknown trainer {self.trainer!r}")
+        if self.interleave_updates:
+            raise not_ported("train.interleave_updates",
+                             "remaining options")
         if self.async_acting:
             raise not_ported("train.async_acting", "mesh, apex, pool")
         if self.record_transcript:
@@ -84,6 +89,25 @@ def _mk_model_cfg(model: Dict[str, Any], num_actions: int) -> ModelConfig:
         if k in m:
             m[k] = tuple(m[k])
     return ModelConfig(num_actions=num_actions, **m)
+
+
+def replay_fields(spec, model_cfg: ModelConfig) -> Dict[str, Any]:
+    """The replay ring's fields for an env spec and a model: name ->
+    (per-step shape, dtype). A recurrent model also stores the actor's
+    LSTM carry."""
+    obs_dt = torch.uint8 if spec.obs_dtype == np.uint8 else torch.float32
+    fields = {
+        "obs": (spec.obs_shape, obs_dt),
+        "action": ((), torch.int32),
+        "reward": ((), torch.float32),
+        "terminated": ((), torch.bool),
+        "done": ((), torch.bool),
+    }
+    if model_cfg.recurrent:
+        H = model_cfg.lstm_size
+        fields["rnn_c"] = ((H,), torch.float32)
+        fields["rnn_h"] = ((H,), torch.float32)
+    return fields
 
 
 class Trainer:
@@ -114,27 +138,25 @@ class Trainer:
             lookback=self.frame_stack - 1,
             **config.get("replay", {}))
 
-        obs_dt = torch.uint8 if spec.obs_dtype == np.uint8 else torch.float32
-        fields = {
-            "obs": (spec.obs_shape, obs_dt),
-            "action": ((), torch.int32),
-            "reward": ((), torch.float32),
-            "terminated": ((), torch.bool),
-            "done": ((), torch.bool),
-        }
-        if self.model_cfg.recurrent:
-            H = self.model_cfg.lstm_size
-            fields["rnn_c"] = ((H,), torch.float32)
-            fields["rnn_h"] = ((H,), torch.float32)
-        self.replay_state = replay_init(self.replay_cfg, fields,
-                                        self.device)
+        self.replay_state = replay_init(
+            self.replay_cfg, replay_fields(spec, self.model_cfg),
+            self.device)
 
         exploration = build(config.get(
             "exploration", {"type": "epsilon_greedy"}))
-        self.actor = Actor(
-            self.env, self.model_cfg, self.frame_stack, exploration,
-            make_generator(seed, "actor", self.device),
-            self.loop_cfg.chunk_len, self.device)
+        if getattr(self.env, "is_device", False):
+            if self.frame_stack != 1:
+                raise ValueError("device envs feed raw obs straight to "
+                                 "the model; frame_stack must be 1")
+            self.actor = DeviceActor(
+                self.env.inner, self.env.num_envs, self.model_cfg,
+                exploration, fold_in_str(seed, "actor"),
+                self.loop_cfg.chunk_len, self.device)
+        else:
+            self.actor = Actor(
+                self.env, self.model_cfg, self.frame_stack, exploration,
+                make_generator(seed, "actor", self.device),
+                self.loop_cfg.chunk_len, self.device)
         self.flatten = len(spec.obs_shape) == 1
 
         if self.flatten:
@@ -204,13 +226,8 @@ class Trainer:
         self.actor.env_steps = int(restored["host_state"]["env_steps"])
         self.updates_done = int(restored["host_state"]["updates"])
         if self.loop_cfg.checkpoint_replay and "replay_state" in restored:
-            rs = restored["replay_state"]
-            for name, arr in rs["storage"].items():
-                self.replay_state.storage[name].copy_(arr)
-            self.replay_state.t = int(rs["t"])
-            self.replay_state.tree = rs["tree"].to(self.device)
-            self.replay_state.max_priority = rs["max_priority"].to(
-                self.device)
+            ckpt_lib.load_replay_state(self.replay_state,
+                                       restored["replay_state"])
         print(f"resumed from checkpoint at env step {step}")
 
     # ----- training -----

@@ -49,6 +49,9 @@ def test_union_gather_kernel_matches_plain(cuda_device, row_shape, dtype):
     ((), torch.bool, 125),            # 1-byte strips
     ((512,), torch.float32, 1),       # the stored LSTM carry
     ((5, 7), torch.uint8, 33),        # odd row width: byte path
+    ((10, 10, 4), torch.uint8, 65),   # MinAtar planes: 400-byte rows
+    ((10, 10, 4), torch.uint8, 1),
+    ((), torch.bool, 66),             # the fused R2D2 done window
 ])
 def test_window_gather_kernel_matches_plain(cuda_device, row_shape, dtype,
                                             window):

@@ -130,6 +130,8 @@ def _field(rng, E, T, row_shape, dtype):
     ((), np.int32, 13),            # action strip
     ((), np.bool_, 14),            # done/terminated strips (1-byte rows)
     ((3, 5), np.float32, 7),       # odd row width
+    ((10, 10, 4), np.uint8, 17),   # MinAtar planes: 400-byte rows
+    ((10, 10, 4), np.uint8, 1),    # ... one row (a frame_stack=1 obs)
 ])
 def test_window_gather_matches_pallas_kernel(row_shape, dtype, window):
     E, T, B = 3, 32, 12

@@ -158,11 +158,12 @@ def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("model", "torso", "minatar_cnn"), ("model", "head", "iqn"),
+    ("replay", "prioritized", False),
+    ("replay", "use_inserted_priorities", True),
     ("algo", "optimizer", "rmsprop"), ("model", "channels_last", True),
     ("model", "space_to_depth", True), ("replay", "sampler", "tree"),
     ("algo", "use_lambda", True), ("train", "profile_dir", "x"),
-    ("train", "trainer", "fused"), ("train", "trainer", "apex"),
+    ("train", "interleave_updates", True), ("train", "trainer", "apex"),
     ("train", "async_acting", True), ("train", "record_transcript", True),
 ])
 def test_unported_options_raise(tmp_path, section, key, value):

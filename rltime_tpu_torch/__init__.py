@@ -8,9 +8,10 @@ the GPU machine it targets has none of them.
 Ported so far (ROADMAP.md):
   * the default host `Trainer` for the feed-forward DQN/IQN path and the
     R2D2 path: dense PER replay with the window gathers as hand-written
-    CUDA kernels (`csrc/window_gather.cu` for every strip, stack done
-    window and the R2D2 frame sequence, `csrc/union_gather.cu` for the
-    FF frame-stack union), the MLP, Nature-CNN and MinAtar-CNN torsos
+    CUDA kernels (`csrc/window_gather.cu`: every strip, single column
+    and the R2D2 frame sequence of one update in one launch;
+    `csrc/union_gather.cu`: both FF frame stacks with their done-mask
+    validity in one launch), the MLP, Nature-CNN and MinAtar-CNN torsos
     with linear, dueling or IQN heads and an optional LSTM, n-step
     double-Q Huber and IQN quantile-Huber losses, R2D2 burn-in from the
     stored carry with n-step or lambda targets through value rescaling,

@@ -14,10 +14,11 @@ Differences from the JAX version, by design:
     given; the JAX version donates and returns a new state.
   * The write cursor `t` is a host int: the insert slices the ring at
     it, and a device scalar would cost a host sync per insert.
-  * Window gathers run on the CUDA kernels of `ops.gather`: every
-    `replay_gather_window` strip, every frame stack's done window and
-    the R2D2 frame sequence on `window_gather` (K1), the FF frame-stack
-    union on `union_gather` (K2).
+  * Window gathers run on the CUDA kernels of `ops.gather`: all the
+    strips, single columns and the R2D2 frame sequence of one update in
+    one `window_gather_multi` launch (K1, `replay_gather_segments`), the
+    FF learner's two frame stacks with their done-mask validity in one
+    `union_stack_gather` launch (K2).
 
 Invariants (held against the JAX version in tests/test_torch_replay.py):
   * leaf(e, c) > 0 implies column c has `horizon` successors stored;
@@ -207,35 +208,30 @@ def replay_update_priorities(cfg: ReplayConfig, state: ReplayState,
     return state
 
 
+def replay_gather_segments(cfg: ReplayConfig, state: ReplayState,
+                           env: torch.Tensor, col: torch.Tensor,
+                           segments) -> list:
+    """Gather several windows at the same sampled (env, col) in ONE
+    `window_gather_multi` (K1) launch (one per 8 segments).
+
+    segments: (field, lead, window) triples; the result holds, in their
+    order, field[env, col-lead : col-lead+window] (mod T) as
+    (B, window, ...) tensors."""
+    env, col = env.to(torch.int32), col.to(torch.int32)
+    names, leads, windows = zip(*segments)
+    return gather.window_gather_multi(
+        [state.storage[name] for name in names], env, col, leads, windows)
+
+
 def replay_gather_window(cfg: ReplayConfig, state: ReplayState,
                          env: torch.Tensor, col: torch.Tensor,
                          length: int, fields=None) -> Dict[str, torch.Tensor]:
     """Gather [col, col+length) (mod T) per sample: field -> (B, length, ...).
 
-    One `window_gather` (K1) per field."""
-    env, col = env.to(torch.int32), col.to(torch.int32)
-    names = fields if fields is not None else list(state.storage)
-    return {name: gather.window_gather(state.storage[name], env, col, length)
-            for name in names}
-
-
-def replay_gather_at(cfg: ReplayConfig, state: ReplayState,
-                     env: torch.Tensor, col: torch.Tensor,
-                     fields=None) -> Dict[str, torch.Tensor]:
-    """Gather single columns per sample: field -> (B, ...)."""
-    cols = torch.remainder(col.long(), cfg.steps_per_env)
-    names = fields if fields is not None else list(state.storage)
-    return {name: state.storage[name][env.long(), cols] for name in names}
-
-
-def _stack_validity(dones: torch.Tensor, dtype) -> torch.Tensor:
-    """(B, F-1) done flags old..new -> (B, F) frame validity: slot i is
-    valid iff no done in (c-(F-1-i), c]."""
-    dnf = dones.to(torch.float32)
-    rev_cum = torch.flip(torch.cumprod(torch.flip(1.0 - dnf, [1]), dim=1),
-                         [1])
-    return torch.cat([rev_cum, torch.ones_like(rev_cum[:, :1])],
-                     dim=1).to(dtype)
+    All the fields are one K1 launch."""
+    names = list(fields if fields is not None else state.storage)
+    return dict(zip(names, replay_gather_segments(
+        cfg, state, env, col, [(name, 0, length) for name in names])))
 
 
 def frame_stack_gather(cfg: ReplayConfig, state: ReplayState,
@@ -244,7 +240,13 @@ def frame_stack_gather(cfg: ReplayConfig, state: ReplayState,
                        done_field: str = "done") -> torch.Tensor:
     """Stacked observations (B, num_frames, ...), index 0 the OLDEST;
     frames from a previous episode are zeroed, as the actor's stacker
-    does."""
+    does.
+
+    The plain statement of the stacking rule (advanced indexing, no
+    kernel). No learner path calls it: the updates take their stacks
+    from `frame_stack_union_gather`, `sequence_stack_gather` or, at
+    frame_stack 1, a window-1 segment. It stays as the reference the
+    tests hold those against, and the JAX package's counterpart."""
     T = cfg.steps_per_env
     env = env.long()
     offs = torch.arange(num_frames - 1, -1, -1, device=col.device)
@@ -255,7 +257,7 @@ def frame_stack_gather(cfg: ReplayConfig, state: ReplayState,
     # done[c-j] for j in [1, F): the boundary between c-j and c-j+1
     dcols = torch.remainder(col.long()[:, None] - offs[None, :-1], T)
     dones = state.storage[done_field][env[:, None], dcols]  # (B, F-1)
-    valid = _stack_validity(dones, frames.dtype)
+    valid = gather.stack_validity(dones, frames.dtype)
     return frames * valid.reshape(valid.shape + (1,) * (frames.ndim - 2))
 
 
@@ -264,64 +266,58 @@ def frame_stack_union_gather(cfg: ReplayConfig, state: ReplayState,
                              num_frames: int, n_step: int,
                              obs_field: str = "obs",
                              done_field: str = "done"):
-    """Both of the FF learner's frame stacks from ONE row gather.
+    """Both of the FF learner's frame stacks from ONE kernel launch.
 
     The stacks at `col` and `col + n_step` overlap in F - n rows; the
-    union window [col-F+1, col+n] is F+n rows, gathered by the
-    `union_gather` kernel. The done-mask validity is applied per slice
-    with the `frame_stack_gather` rule, so the result is bit-identical
-    to two separate stacks. Returns (obs_t, obs_tn), each
+    union window [col-F+1, col+n] is F+n rows. `union_stack_gather` (K2)
+    reads each once and writes both stacks with the done-mask validity
+    of `frame_stack_gather` applied, so the result is bit-identical to
+    two separate stacks. Returns (obs_t, obs_tn), each
     (B, num_frames, ...)."""
-    F, n = num_frames, n_step
-    if F <= 1:
+    if num_frames <= 1:
         raise ValueError("union gather needs frame_stack > 1")
-    W = F + n
-    env = env.to(torch.int32)
-    col0 = col.to(torch.int32) - (F - 1)
-    rows = gather.union_gather(state.storage[obs_field], env, col0,
-                               W)                        # (B, W, ...)
-    # done flag above union row j: done[col-F+1+j], j in [0, W-1)
-    dones = gather.window_gather(state.storage[done_field], env, col0, W - 1)
-    shape0 = (rows.shape[0], F) + (1,) * (rows.ndim - 2)
-    v_t = _stack_validity(dones[:, :F - 1], rows.dtype).reshape(shape0)
-    v_tn = _stack_validity(dones[:, n:n + F - 1],
-                           rows.dtype).reshape(shape0)
-    return rows[:, :F] * v_t, rows[:, n:n + F] * v_tn
+    return gather.union_stack_gather(
+        state.storage[obs_field], state.storage[done_field],
+        env.to(torch.int32), col.to(torch.int32), num_frames, n_step)
 
 
 def sequence_stack_gather(cfg: ReplayConfig, state: ReplayState,
                           env: torch.Tensor, col: torch.Tensor,
-                          length: int, num_frames: int):
+                          length: int, num_frames: int, extra=()):
     """Per-step frame stacks over [col, col+length) from ONE obs window.
 
     The R2D2 learner's sequence: the stack of step t (column col+t) is
     `frame_stack_gather` at col+t, bit for bit. Instead of length
-    separate F-row stacks, one `window_gather` of length + F - 1 rows
-    from col - (F-1) serves them all: step t's stack is rows [t, t+F)
-    (a strided view), masked with the `_stack_validity` rule on a done
-    window from col - D, D = max(F-1, 1).
+    separate F-row stacks, one window of length + F - 1 rows from
+    col - (F-1) serves them all: step t's stack is rows [t, t+F) (a
+    strided view), masked with the `stack_validity` rule on a done
+    window from col - D, D = max(F-1, 1). `extra` holds further
+    (field, lead, window) segments of `replay_gather_segments` (the
+    learner's strips and its stored carry); frames, dones and extras
+    travel in one K1 launch.
 
-    Returns (stacks (B, length, F, ...), dones (B, length + D)) with
-    dones[:, j] = done at column col - D + j, so the caller reads
+    Returns (stacks (B, length, F, ...), dones (B, length + D), extras)
+    with dones[:, j] = done at column col - D + j, so the caller reads
     done_prev (done at col+t-1) as dones[:, D-1:D-1+length] and the
-    boundary strip (done at col+t) as dones[:, D:D+length]."""
+    boundary strip (done at col+t) as dones[:, D:D+length]; extras is
+    the list of `extra`'s gathered tensors."""
     F = num_frames
     D = max(F - 1, 1)
-    env, col = env.to(torch.int32), col.to(torch.int32)
-    rows = gather.window_gather(state.storage["obs"], env, col - (F - 1),
-                                length + F - 1)        # (B, length+F-1, ...)
-    dones = gather.window_gather(state.storage["done"], env, col - D,
-                                 length + D)           # (B, length+D)
+    rows, dones, *extras = replay_gather_segments(
+        cfg, state, env, col,
+        [("obs", F - 1, length + F - 1),       # (B, length+F-1, ...)
+         ("done", D, length + D),              # (B, length+D)
+         *extra])
     B = rows.shape[0]
     row_shape = tuple(rows.shape[2:])
     stacks = rows.as_strided((B, length, F) + row_shape,
                              (rows.stride(0), rows.stride(1),
                               rows.stride(1)) + rows.stride()[2:])
     if F == 1:
-        return stacks, dones
+        return stacks, dones, extras
     # done flags of step t's stack, old..new: done[col+t-j], j = F-1..1
     sd = dones[:, D - (F - 1):D - 1 + length]            # (B, length+F-2)
     sd = sd.unfold(1, F - 1, 1)                          # (B, length, F-1)
-    valid = _stack_validity(sd.reshape(B * length, F - 1), rows.dtype)
+    valid = gather.stack_validity(sd.reshape(B * length, F - 1), rows.dtype)
     valid = valid.reshape((B, length, F) + (1,) * len(row_shape))
-    return stacks * valid, dones
+    return stacks * valid, dones, extras

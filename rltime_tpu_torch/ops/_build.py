@@ -25,11 +25,19 @@ BUILD_DIR = _PKG.parent / "build" / "rltime_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# Every kernel's C entry point has this signature:
-# (out, storage, env, col, B, window, T, row_bytes, stream) -> cudaError_t
-_GATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+# Library (source stem) -> C entry point -> argument types. Every entry
+# point returns a cudaError_t (0 on success).
+ENTRY_POINTS = {
+    # (out_t, out_tn, storage, done, env, col, B, F, n, lead, T,
+    #  row_bytes, stream)
+    "union_gather": {"union_stack_gather": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64,
+        _I64, _PTR]},
+    # (segments, num, env, col, B, stream)
+    "window_gather": {"window_gather_multi": [
+        _PTR, _I64, _PTR, _PTR, _I64, _PTR]},
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -98,8 +106,9 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         path = build()[name]
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = _GATHER_ARGTYPES
-        fn.restype = ctypes.c_int
+        for entry, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]

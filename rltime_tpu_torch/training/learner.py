@@ -1,10 +1,11 @@
 """Learner: the feed-forward DQN/IQN update step (port of
 `training/learner.py`).
 
-One update: PER sample -> frame-stack union gather (CUDA kernel; at
-frame_stack=1 the two single-frame gathers are plain advanced indexing,
-as the JAX version leaves them to XLA) -> n-step strips (window_gather
-kernel) -> n-step double-Q Huber loss, or the IQN quantile-Huber loss
+One update: PER sample -> both frame stacks with their done-mask
+validity (one launch of the union-gather CUDA kernel) -> the n-step
+strips and the action (one launch of the window-gather kernel, which at
+frame_stack=1 also carries the two single frames) -> n-step double-Q
+Huber loss, or the IQN quantile-Huber loss
 over freshly drawn taus -> backward -> optax-rule global-norm clip ->
 Adam -> periodic target sync -> priority write-back. Every tensor stays
 on the device; metrics come back as device scalars, read only when the
@@ -25,9 +26,9 @@ import torch
 
 from rltime_tpu_torch import not_ported
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, ReplayState, frame_stack_gather, frame_stack_union_gather,
-    replay_gather_at, replay_gather_window, replay_insert,
-    replay_sample_indices, replay_update_priorities,
+    ReplayConfig, ReplayState, frame_stack_union_gather,
+    replay_gather_segments, replay_insert, replay_sample_indices,
+    replay_update_priorities,
 )
 from rltime_tpu_torch.models.policy import ModelConfig, QPolicy
 from rltime_tpu_torch.ops import losses, returns
@@ -126,28 +127,30 @@ def make_train_state(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
 
 def _gather_batch(replay_cfg: ReplayConfig, rstate: ReplayState,
                   env, col, frame_stack: int, n_step: int, flatten: bool):
-    """Everything one FF update needs from the ring storage."""
-    if frame_stack > 1:
-        # one union-window gather for both stacks (F+n rows vs 2F)
-        obs_t, obs_tn = frame_stack_union_gather(
-            replay_cfg, rstate, env, col, frame_stack, n_step)
-    else:
-        obs_t = frame_stack_gather(replay_cfg, rstate, env, col, 1)
-        obs_tn = frame_stack_gather(replay_cfg, rstate, env, col + n_step,
-                                    1)
+    """Everything one FF update needs from the ring storage: the frame
+    stacks (K2), and the n-step strips with the action in one K1
+    launch, which at frame_stack=1 also carries the two single frames."""
+    segments = [("reward", 0, n_step), ("done", 0, n_step),
+                ("terminated", 0, n_step), ("action", 0, 1)]
+    if frame_stack == 1:
+        # a stack of one frame has no validity mask: the frames at col
+        # and col + n_step are two more windows of one row
+        segments += [("obs", 0, 1), ("obs", -n_step, 1)]
+    reward, done, terminated, action, *frames = replay_gather_segments(
+        replay_cfg, rstate, env, col, segments)
+    # at frame_stack > 1 one union-window gather serves both stacks (F+n
+    # rows vs 2F)
+    obs_t, obs_tn = frames or frame_stack_union_gather(
+        replay_cfg, rstate, env, col, frame_stack, n_step)
     if flatten:
         obs_t = obs_t.reshape(obs_t.shape[0], -1)
         obs_tn = obs_tn.reshape(obs_tn.shape[0], -1)
-    win = replay_gather_window(replay_cfg, rstate, env, col, n_step,
-                               fields=["reward", "done", "terminated"])
-    at = replay_gather_at(replay_cfg, rstate, env, col, fields=["action"])
     # Windows whose first boundary is a TRUNCATION have no stored
     # bootstrap obs: excluded via trunc_ok (zero loss weight, zero
     # priority write-back; ops/returns.truncation_mask).
-    trunc_ok = returns.truncation_mask(win["terminated"], win["done"])
-    return dict(obs=obs_t, next_obs=obs_tn, action=at["action"],
-                rewards=win["reward"], boundary=win["done"],
-                trunc_ok=trunc_ok)
+    trunc_ok = returns.truncation_mask(terminated, done)
+    return dict(obs=obs_t, next_obs=obs_tn, action=action[:, 0],
+                rewards=reward, boundary=done, trunc_ok=trunc_ok)
 
 
 def _global_norm(tensors) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Port of `rltime_tpu/training/r2d2.py`. A sampled column `s` starts the
 burn-in window; the replay ring serves the whole [s, s+burn+len+n)
-window: the frame sequence is ONE `window_gather` (K1) of
-total + F - 1 rows per sample (`history/replay.py:sequence_stack_gather`),
-the action/reward/terminated strips one K1 each, and the done strip
-(stack masks, `done_prev` and the boundary flags) one more.
+window in ONE launch of the window-gather kernel (K1,
+`history/replay.py:sequence_stack_gather`): the frame sequence of
+total + F - 1 rows per sample, the done strip (stack masks, `done_prev`
+and the boundary flags), the action/reward/terminated strips and the
+stored carry at `s`.
 
 The unroll starts from the carry the actor stored at `s`. Burn-in warms
 it with the ONLINE net under `no_grad` (so its gradient is exactly
@@ -26,8 +27,8 @@ from typing import Optional
 import torch
 
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, ReplayState, replay_gather_at, replay_gather_window,
-    replay_sample_indices, replay_update_priorities, sequence_stack_gather,
+    ReplayConfig, ReplayState, replay_sample_indices,
+    replay_update_priorities, sequence_stack_gather,
 )
 from rltime_tpu_torch.models.policy import (
     ModelConfig, head_seq, unroll_features,
@@ -109,19 +110,20 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
         idx = replay_sample_indices(replay_cfg, rstate, B, beta,
                                     generator=state.generator, u=u)
         env, col = idx["env"], idx["col"]
-        stacks, dones = sequence_stack_gather(replay_cfg, rstate, env, col,
-                                              total, frame_stack)
+        # the strips over the window and the stored carry at col (if col
+        # starts an episode, the unroll resets it anyway) ride with the
+        # frames and the done strip
+        stacks, dones, (action, reward, terminated, rnn_c, rnn_h) = (
+            sequence_stack_gather(
+                replay_cfg, rstate, env, col, total, frame_stack,
+                extra=[("action", 0, total), ("reward", 0, total),
+                       ("terminated", 0, total), ("rnn_c", 0, 1),
+                       ("rnn_h", 0, 1)]))
         obs = stacks.reshape(B, total, -1) if flatten else stacks
         # done_prev[t] = done at col+t-1 (the episode ended before t)
         done_prev = dones[:, D - 1:D - 1 + total]
         boundary = dones[:, D:D + total]
-        win = replay_gather_window(replay_cfg, rstate, env, col, total,
-                                   fields=["action", "reward", "terminated"])
-        # the stored carry at col (if col starts an episode, the unroll
-        # resets it anyway)
-        s0 = replay_gather_at(replay_cfg, rstate, env, col,
-                              fields=["rnn_c", "rnn_h"])
-        state0 = (s0["rnn_c"], s0["rnn_h"])
+        state0 = (rnn_c[:, 0], rnn_h[:, 0])
 
         model, target = state.model, state.target
         warm = state0
@@ -138,11 +140,11 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
             h_tg, _ = unroll_features(target, obs, done_prev, state0)
             q_tg = head_seq(target, h_tg[:, burn:])
             target_q, tmask = targets(q_on.detach(), q_tg,
-                                      win["reward"][:, burn:],
+                                      reward[:, burn:],
                                       boundary[:, burn:],
-                                      win["terminated"][:, burn:])
+                                      terminated[:, burn:])
 
-        q_sa = _take(q_on[:, :L], win["action"][:, burn:burn + L])
+        q_sa = _take(q_on[:, :L], action[:, burn:burn + L])
         td = target_q - q_sa                             # (B, L)
         per_step = losses.huber(td, cfg.huber_kappa)
         mask = tmask if cfg.exact_truncation else torch.ones_like(td)

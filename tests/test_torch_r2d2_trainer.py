@@ -96,10 +96,11 @@ def test_r2d2_trainer_rings_match_jax(tmp_path):
     plain_before = dict(gather.PLAIN_CALLS)
     tt.train()
     assert tt.updates_done == jt.updates_done == 9
-    # per update: the frame sequence and the done strip, then the
-    # action, reward and terminated strips, all through the K1 wrapper
+    # per update: the frame sequence, the done strip, the action,
+    # reward and terminated strips and the stored carry, all in one
+    # call of the K1 wrapper
     assert gather.PLAIN_CALLS["window_gather"] - plain_before[
-        "window_gather"] == 5 * tt.updates_done
+        "window_gather"] == tt.updates_done
     assert gather.PLAIN_CALLS["union_gather"] == plain_before["union_gather"]
     assert tt.replay_state.t == int(jt.replay_state.t) == 192 // 2
     ts, js = tt.replay_state.storage, jt.replay_state.storage

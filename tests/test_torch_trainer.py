@@ -47,12 +47,12 @@ def test_trainer_rings_match_jax(tmp_path):
     plain_before = dict(gather.PLAIN_CALLS)
     tt = Trainer(cfg, str(tmp_path / "torch"), device="cpu").train()
     assert tt.updates_done == jt.updates_done > 0
-    # every update's frame-stack gather, its stack done window and its
-    # three n-step strips (reward, done, terminated) went through the
-    # (CPU) wrappers
+    # every update went through the (CPU) wrappers twice: the fused
+    # frame-stack gather, and one multi-field gather for its three
+    # n-step strips (reward, done, terminated) and the action
     plain = {k: v - plain_before[k] for k, v in gather.PLAIN_CALLS.items()}
     assert plain == {"union_gather": tt.updates_done,
-                     "window_gather": 4 * tt.updates_done}
+                     "window_gather": tt.updates_done}
     assert tt.replay_state.t == int(jt.replay_state.t) == 288 // 2
     for name in ("obs", "reward", "done", "terminated"):
         np.testing.assert_array_equal(

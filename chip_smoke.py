@@ -48,10 +48,31 @@ Phases (any failure exits non-zero and prints no result line):
      `minatar_breakout_r2d2` (one window_gather launch per update: the
      frame sequence, its done window, three strips, the carry) and
      `minatar_seaquest_dqn`, through the same entry point;
-  8. small-input checks that one learner update of each path, one
-     fused superstep on injected draws, and every device env's dynamics
-     agree on the card and on the CPU (the CPU paths are held to the
-     JAX package by tests/test_torch_*.py).
+  8. small-input checks that one learner update of each path and of
+     each option (RMSProp, the sum tree, uniform replay, Q(lambda),
+     NHWC + space-to-depth), one fused superstep on injected draws
+     (chunked, and interleaved with actor-side priorities), the sum
+     tree's `set_priorities` and `sample` on dyadic priorities (bit-equal)
+     and every device env's dynamics agree on the card and on the CPU
+     (the CPU paths are held to the JAX package by tests/test_torch_*.py);
+  9. the options of the config-#2 path at full width, counted as phase 3
+     is: `pong_dqn_counting` with NHWC stacks, the space-to-depth conv_0,
+     centered RMSProp, the sum-tree sampler, actor-side initial
+     priorities and a transcript (one union_gather and one window_gather
+     launch per update, a `transcript.jsonl` record per chunk), then a
+     few warm chunks timed; and the same preset with `algo.use_lambda`
+     (Q(lambda): the n+1 frame stacks ride in the one window_gather
+     launch, no union_gather);
+ 10. config #1: `cartpole_dqn` (host CartPole, uniform replay) and
+     `cartpole_dqn_device` as written, cut to a few thousand steps, then
+     `rltime_tpu_torch.eval.evaluate` on each result directory, latest
+     and `--best`;
+ 11. the fused trainer with `train.interleave_updates` and actor-side
+     priorities on `minatar_breakout_dqn`, and `minatar_breakout_iqn`
+     with priorities on the sum tree: a warm dispatch of each under
+     set_sync_debug_mode("error"), then timed dispatches of the first.
+Phase 2 also times the NHWC layout change that follows the union gather
+and the sum tree beside the dense tree at config #2's size.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -82,6 +103,21 @@ R2D2_PATH = dict(preset="atari_r2d2_counting", steps=49_152, warmup=16_384,
 # S=4 supersteps x 64 updates. Breakout R2D2 (L=16, warmup 40,000):
 # chunks 1-9 warm, then dispatches of S=8 supersteps x 8 updates.
 # `k1` = window_gather launches per update.
+# config #2 with every option of the path: with actor-side priorities the
+# actor runs one step ahead of what it has emitted, so after chunk k it
+# has taken (32 k + 1) x 64 env steps: chunks 4..8 run K=2 updates
+DQN_OPTIONS_PATH = dict(
+    preset="pong_dqn_counting", tag="pong_dqn_counting+options",
+    steps=16_384, warmup=8_192, updates=10, ckpt_step=16_448,
+    overrides=["--model.channels_last=true", "--model.space_to_depth=true",
+               "--algo.optimizer=rmsprop", "--replay.sampler=tree",
+               "--replay.use_inserted_priorities=true",
+               "--train.record_transcript=true"])
+# ... and with FF Q(lambda): chunks 4..6 run K=2 updates
+DQN_LAMBDA_PATH = dict(
+    preset="pong_dqn_counting", tag="pong_dqn_counting+use_lambda",
+    steps=12_288, warmup=8_192, updates=6,
+    overrides=["--algo.use_lambda=true"])
 FUSED_PATH = dict(preset="minatar_breakout_dqn", steps=81_920, updates=512,
                   k1=1)
 FUSED_OTHERS = (
@@ -477,13 +513,35 @@ def phase_kernels(smi: str):
                    (fields["action"], 0, 125), (fields["reward"], 0, 125),
                    (fields["terminated"], 0, 125), (carry[0], 0, 1),
                    (carry[1], 0, 1)], 64)
-    del ring, carry
+    del carry
     # ... and at the config-#2 update's: three n = 3 strips and the action
     compare_multi("multi B=256 config-#2 update (4 segments)",
                   [(fields["reward"], 0, 3), (fields["done"], 0, 3),
                    (fields["terminated"], 0, 3), (fields["action"], 0, 1)],
                   256)
-    del fields, dense
+    # ... and at the config-#2 Q(lambda) update's: the F + n = 7 frames
+    # and 7 dones from col - 3 that serve the n + 1 stacks, the three
+    # n = 3 strips and the action
+    compare_multi("multi B=256 config-#2 Q(lambda) update (6 segments)",
+                  [(ring, 3, 7), (fields["done"], 3, 7),
+                   (fields["reward"], 0, 3), (fields["done"], 0, 3),
+                   (fields["terminated"], 0, 3), (fields["action"], 0, 1)],
+                  256)
+    del ring, fields, dense
+    # ... and at the config-#1 update's (uniform replay, frame_stack 1,
+    # n = 1) on its 32 x 2048 ring of 4-float observations: three one-row
+    # strips, the action, the observations at col and col + 1
+    E1, T1 = 32, 2048
+    state = torch.randn((E1, T1, 4), generator=g, device=dev)
+    fields = {"done": rand_done(E1, T1, 0.02),
+              "action": rand((E1, T1), torch.int32),
+              "reward": torch.randn((E1, T1), generator=g, device=dev),
+              "terminated": rand((E1, T1), torch.bool)}
+    compare_multi("multi B=128 config-#1 update (6 segments, 16 B rows)",
+                  [(fields["reward"], 0, 1), (fields["done"], 0, 1),
+                   (fields["terminated"], 0, 1), (fields["action"], 0, 1),
+                   (state, 0, 1), (state, -1, 1)], 128)
+    del state, fields
     # K1 at every strip the two paths gather from the 64 x 4096 rings:
     # R2D2's 125 rows of 4 B (action, reward) and 1 B (terminated) from
     # col and its 128-row done window from col - 3; config #2's n = 3
@@ -561,6 +619,131 @@ def phase_kernels(smi: str):
     return results
 
 
+def phase_option_timings(smi: str):
+    """Phase 2, continued: what the new options of the config-#2 path
+    cost beside what they stand next to, at its size. (a) The NHWC
+    layout change that follows the union gather under
+    `model.channels_last` (both (256, 4, 84, 84) uint8 stacks to
+    contiguous (256, 84, 84, 4)), beside the gather itself. (b) The sum
+    tree's sample + priority write-back beside the dense tree's at
+    262,144 leaves, B = 256, equal leaves on dyadic priorities. (c) The
+    done-mask validity product that builds Q(lambda)'s n + 1 stacks per
+    sample from one K1 window, beside that K1 launch."""
+    import torch
+    from rltime_tpu_torch.history import replay as replay_lib
+    from rltime_tpu_torch.ops import dense_tree, gather, sum_tree
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    E, T, B, F, n = 64, 4096, 256, 4, 3
+    ring = torch.randint(0, 256, (E, T, 84, 84), generator=g, device=dev,
+                         dtype=torch.uint8)
+    done = torch.rand((E, T), generator=g, device=dev) < 0.004
+    sets = [(torch.randint(0, E, (B,), generator=g, device=dev,
+                           dtype=torch.int32),
+             torch.randint(0, T, (B,), generator=g, device=dev,
+                           dtype=torch.int32)) for _ in range(15)]
+    stacks = [gather.union_stack_gather(ring, done, e, c, F, n)
+              for e, c in sets]
+    it, it_g = itertools.cycle(stacks), itertools.cycle(sets)
+
+    def layout():
+        a, b = next(it)
+        return (torch.movedim(a, 1, -1).contiguous(),
+                torch.movedim(b, 1, -1).contiguous())
+
+    def gather_only():
+        gather.union_stack_gather(ring, done, *next(it_g), F, n)
+
+    out = layout()
+    check(out[0].shape == (B, 84, 84, F) and out[0].is_contiguous()
+          and torch.equal(out[0].permute(0, 3, 1, 2), stacks[0][0]),
+          "layout change: wrong result")
+    ev, ev_g = median_ms(layout, 15), median_ms(gather_only, 15)
+    ms = device_ms_per_call(layout, 15)
+    ms_g = device_ms_per_call(gather_only, 15)
+    moved = 2 * 2 * stacks[0][0].numel()
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    print(f"NHWC layout change after union_gather (both stacks, B={B} F={F} "
+          f"84x84 u8): device time {ms:.4f} ms ({ev:.4f} ms by CUDA events "
+          f"incl. its 2 launches), bound {bound:.5f} ms ({moved} bytes): "
+          f"{bound / ms:.1%} reached; the gather before it {ms_g:.4f} ms "
+          f"({ev_g:.4f} ms by CUDA events)  [{smi}]", flush=True)
+    del stacks
+    # (c) under algo.use_lambda the n + 1 stacks come from one K1 window
+    # and their done-mask validity is PyTorch: the masking product beside
+    # the K1 launch that feeds it
+    segs = [ring, done, torch.randn((E, T), generator=g, device=dev), done,
+            done, torch.zeros((E, T), dtype=torch.int32, device=dev)]
+    leads, wins = (F - 1, F - 1, 0, 0, 0, 0), (F + n, F + n, n, n, n, 1)
+    windows = [gather.window_gather_multi(segs, e, c, leads, wins)[:2]
+               for e, c in sets]
+    it_w, it_g = itertools.cycle(windows), itertools.cycle(sets)
+
+    def masking():
+        return replay_lib.stacks_from_window(*next(it_w), n + 1, F)
+
+    def k1_only():
+        gather.window_gather_multi(segs, *next(it_g), leads, wins)
+
+    e, c = sets[0]
+    cols = c.long()[:, None] + torch.arange(n + 1, device=dev)
+    ref = torch.stack([gather.union_stack_gather_reference(
+        ring, done, e, torch.remainder(cols[:, t], T).int(), F, n)[0]
+        for t in range(n + 1)], 1)
+    check(torch.equal(masking(), ref), "Q(lambda) stacks: wrong result")
+    it_w = itertools.cycle(windows)
+    ev, ev_g = median_ms(masking, 15), median_ms(k1_only, 15)
+    ms = device_ms_per_call(masking, 15)
+    ms_g = device_ms_per_call(k1_only, 15)
+    moved = windows[0][0].numel() + ref.numel()
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    print(f"Q(lambda) stack masking after window_gather (B={B} F={F} n={n} "
+          f"84x84 u8, {n + 1} stacks per sample): device time {ms:.4f} ms "
+          f"({ev:.4f} ms by CUDA events incl. its launches), bound "
+          f"{bound:.5f} ms ({moved} bytes): {bound / ms:.1%} reached; the K1 "
+          f"launch before it {ms_g:.4f} ms ({ev_g:.4f} ms by CUDA events)  "
+          f"[{smi}]", flush=True)
+    del ring, windows, segs, ref
+    torch.cuda.empty_cache()
+
+    N = E * T
+    prio = torch.randint(0, 64, (N,), generator=g, device=dev).float() / 8.0
+    idx_all = torch.arange(N, device=dev)
+    dense = dense_tree.set_priorities(dense_tree.init(N, dev), idx_all, prio,
+                                      unique=True)
+    tree = sum_tree.set_priorities(sum_tree.init(N, dev), idx_all, prio,
+                                   unique=True)
+    us = [torch.rand((B,), generator=g, device=dev) for _ in range(15)]
+    tds = [torch.randint(0, 64, (B,), generator=g, device=dev).float() / 8.0
+           for _ in range(15)]
+    for u in us[:3]:
+        leaf_d, p_d = dense_tree.sample(dense, u)
+        leaf_t, p_t = sum_tree.sample(tree, u)
+        check(torch.equal(leaf_d, leaf_t) and torch.equal(p_d, p_t),
+              "sum tree and dense tree sampled different leaves")
+    it_d, it_t = (itertools.cycle(zip(us, tds)) for _ in range(2))
+
+    def dense_cycle():
+        u, td = next(it_d)
+        leaf, _ = dense_tree.sample(dense, u)
+        return dense_tree.set_priorities(dense, leaf, td)
+
+    def tree_cycle():
+        u, td = next(it_t)
+        leaf, _ = sum_tree.sample(tree, u)
+        return sum_tree.set_priorities(tree, leaf, td)
+
+    check(torch.equal(dense_cycle()[:N], sum_tree.get(tree_cycle(), idx_all)),
+          "sum tree and dense tree wrote different leaves")
+    ev_d, ev_t = median_ms(dense_cycle, 15), median_ms(tree_cycle, 15)
+    ms_d = device_ms_per_call(dense_cycle, 9)
+    ms_t = device_ms_per_call(tree_cycle, 9)
+    print(f"PER sample + priority write-back at {N} leaves, B={B}: dense tree "
+          f"{ev_d:.3f} ms by CUDA events incl. launches ({ms_d:.4f} ms of "
+          f"device time), sum tree {ev_t:.3f} ms ({ms_t:.4f} ms of device "
+          f"time); same leaves on dyadic priorities  [{smi}]", flush=True)
+
+
 def run_path(path: dict):
     """Drive one config through the CLI's entry point on the card with
     the launch counters zeroed just before and read just after; check
@@ -569,12 +752,14 @@ def run_path(path: dict):
     from rltime_tpu_torch import train
     from rltime_tpu_torch.ops import gather
     from rltime_tpu_torch.training import checkpoint as ckpt_lib
-    result_dir = ROOT / "results" / f"chip_smoke_{path['preset']}"
+    tag = path.get("tag", path["preset"])
+    result_dir = ROOT / "results" / f"chip_smoke_{tag}"
     shutil.rmtree(result_dir, ignore_errors=True)
     argv = [path["preset"], "--device", "cuda",
             "--result-dir", str(result_dir),
             f"--train.warmup_env_steps={path['warmup']}",
-            f"--train.total_env_steps={path['steps']}"]
+            f"--train.total_env_steps={path['steps']}",
+            *path.get("overrides", [])]
     torch.cuda.reset_peak_memory_stats()
     gather.reset_counts()
     trainer = train.run(argv)
@@ -584,7 +769,6 @@ def run_path(path: dict):
     phases = trainer.timers.pop()     # whole run: no log interval hit
     loop_s = sum(phases.values())
 
-    tag = path["preset"]
     check(trainer.device.type == "cuda", f"{tag}: trainer not on cuda")
     check(trainer.updates_done == path["updates"],
           f"{tag}: {trainer.updates_done} updates, expected "
@@ -602,7 +786,7 @@ def run_path(path: dict):
     check(bool(torch.isfinite(rs.tree).all()) and rs.tree.sum().item() > 0,
           f"{tag}: priorities not finite/positive")
     step = ckpt_lib.latest_step(str(result_dir))
-    check(step == path["steps"]
+    check(step == path.get("ckpt_step", path["steps"])
           and (result_dir / "checkpoints" / str(step) / "state.pt").is_file(),
           f"{tag}: checkpoint missing (latest step {step})")
     upd_s = phases["insert+update"]
@@ -959,14 +1143,16 @@ def _compare_updates(tag, out, tol):
     run of the same update. Returns the largest param difference."""
     import torch
     (mc, rc, tc), (mg, rg, tg) = out
-    check(torch.equal(mc["debug_leaf"], mg["debug_leaf"].cpu()),
-          f"{tag} parity: sampled leaves differ")
     for k in ("loss", "grad_norm", "td_abs"):
         a, b = mc[k].item(), mg[k].item()
         check(math.isclose(a, b, rel_tol=tol), f"{tag} parity: {k} {a} vs "
               f"{b}")
-    check(torch.allclose(mc["debug_td"], mg["debug_td"].cpu(), rtol=tol,
-                         atol=1e-6), f"{tag} parity: per-sample td differs")
+    if "debug_leaf" in mc:      # (not under interleave_updates)
+        check(torch.equal(mc["debug_leaf"], mg["debug_leaf"].cpu()),
+              f"{tag} parity: sampled leaves differ")
+        check(torch.allclose(mc["debug_td"], mg["debug_td"].cpu(), rtol=tol,
+                             atol=1e-6),
+              f"{tag} parity: per-sample td differs")
     check(torch.allclose(rc.tree, rg.tree.cpu(), rtol=tol, atol=1e-7),
           f"{tag} parity: priorities differ")
     worst = max((p.detach().cpu() - q.detach()).abs().max().item()
@@ -974,7 +1160,7 @@ def _compare_updates(tag, out, tol):
                                 tc.model.parameters()))
     check(worst <= 1e-5, f"{tag} parity: params after Adam differ by "
           f"{worst}")
-    print(f"small-input {tag} parity cuda vs cpu: leaves equal, loss "
+    print(f"small-input {tag} parity cuda vs cpu: loss "
           f"{mg['loss'].item():.6g} vs {mc['loss'].item():.6g}, max param "
           f"diff {worst:.3g} (f32, TF32 off)", flush=True)
 
@@ -995,36 +1181,53 @@ def phase_small_parity(devices=("cpu", "cuda")):
                compute_dtype="float32")
     # adam_eps well above |grad| keeps Adam's step Lipschitz in the grad,
     # so last-ulp conv differences cannot flip an update's sign
+    base = dict(batch_size=B, n_step=3, lr=1e-3, adam_eps=1e-3,
+                grad_clip=0.05, target_update_freq=1, debug_outputs=True)
+    nhwc = dict(cnn, channels_last=True, space_to_depth=True)
+    # (tag, model, algo, replay options)
     cases = [
-        ("dqn", ModelConfig(**cnn),
-         learner.AlgoConfig(batch_size=B, n_step=3, lr=1e-3, adam_eps=1e-3,
-                            grad_clip=0.05, target_update_freq=1,
-                            debug_outputs=True)),
+        ("dqn", ModelConfig(**cnn), learner.AlgoConfig(**base), {}),
         ("r2d2", ModelConfig(lstm_size=16, **cnn),
-         learner.AlgoConfig(algo="r2d2", batch_size=8, n_step=2, burn_in=4,
-                            seq_len=8, gamma=0.997, lr=1e-3, adam_eps=1e-3,
-                            grad_clip=0.05, target_update_freq=1,
-                            debug_outputs=True)),
+         learner.AlgoConfig(**dict(base, algo="r2d2", batch_size=8, n_step=2,
+                                   burn_in=4, seq_len=8, gamma=0.997)), {}),
+        ("dqn rmsprop", ModelConfig(**cnn),
+         learner.AlgoConfig(**dict(base, optimizer="rmsprop")), {}),
+        ("dqn sum tree", ModelConfig(**cnn), learner.AlgoConfig(**base),
+         dict(sampler="tree")),
+        ("dqn uniform replay", ModelConfig(**cnn),
+         learner.AlgoConfig(**base), dict(prioritized=False)),
+        ("dqn Q(lambda)", ModelConfig(**cnn),
+         learner.AlgoConfig(**dict(base, use_lambda=True)), {}),
+        ("dqn NHWC + space-to-depth", ModelConfig(**nhwc),
+         learner.AlgoConfig(**base), {}),
     ]
-    for tag, mcfg, acfg in cases:
+    for tag, mcfg, acfg, replay_kw in cases:
         rec = acfg.algo == "r2d2"
         horizon = r2d2.r2d2_horizon(acfg) if rec else acfg.n_step
         rcfg = replay.ReplayConfig(num_envs=E, steps_per_env=T,
                                    horizon=horizon, chunk_len=L,
-                                   lookback=F - 1)
+                                   lookback=F - 1, **replay_kw)
         rng = np.random.default_rng(0)
         chunks = _chunks(rng, E, L, (84, 84), 6, mcfg.lstm_size)
-        u = torch.from_numpy(rng.random(acfg.batch_size).astype(np.float32))
+        if rcfg.prioritized:
+            u = torch.from_numpy(rng.random(acfg.batch_size).astype(
+                np.float32))
+        else:       # uniform replay's integer draws: offsets, then lanes
+            lo, hi = replay.valid_range(rcfg, len(chunks) * L)
+            u = (torch.from_numpy(rng.integers(0, hi - lo, B)),
+                 torch.from_numpy(rng.integers(0, E, B)))
+        in_shape = (84, 84, F) if mcfg.channels_last else (F, 84, 84)
         out = []
         for dev in map(torch.device, devices):
             rs = replay.replay_init(rcfg, _fields((84, 84), mcfg.lstm_size),
                                     dev)
             for c in chunks:
                 replay.replay_insert(rcfg, rs, c)
-            ts = learner.make_train_state(mcfg, acfg, (F, 84, 84), 0, dev)
+            ts = learner.make_train_state(mcfg, acfg, in_shape, 0, dev)
             upd = (r2d2.make_r2d2_update_step(mcfg, acfg, rcfg, F, False)
-                   if rec else learner.make_update_step(acfg, rcfg, F, False))
-            ts, rs, m = upd(ts, rs, 0.5, u=u.to(dev))
+                   if rec else learner.make_update_step(
+                       acfg, rcfg, F, False, mcfg.channels_last))
+            ts, rs, m = upd(ts, rs, 0.5, u=_to_device(u, dev))
             out.append((m, rs, ts))
         _compare_updates(tag, out, 1e-4)
 
@@ -1032,16 +1235,19 @@ def phase_small_parity(devices=("cpu", "cuda")):
 def _to_device(x, dev):
     if isinstance(x, dict):
         return {k: _to_device(v, dev) for k, v in x.items()}
-    if isinstance(x, list):
-        return [_to_device(v, dev) for v in x]
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, dev) for v in x)
     return x.to(dev)
 
 
-def phase_fused_parity(devices=("cpu", "cuda")):
+def phase_fused_parity(devices=("cpu", "cuda"), interleave=False):
     """One fused superstep (8 act steps, the insert, 2 updates) on the
     card vs the same on the CPU, on the same injected draws, in float32
     with TF32 off. Acting is at eps = 1, so the ring's bytes must be
-    equal; the updates are compared as phase_small_parity's."""
+    equal; the updates are compared as phase_small_parity's.
+    `interleave`: the interleaved superstep instead (8 x {act, one-column
+    insert, 1 update}) with actor-side priorities, whose ring (the
+    actor's |TD|, float math) is compared to 1e-4."""
     import torch
     from rltime_tpu_torch.acting.device_actor import (
         act_draws, init_device_actor_state,
@@ -1049,26 +1255,30 @@ def phase_fused_parity(devices=("cpu", "cuda")):
     from rltime_tpu_torch.parallel.fused import FusedApexTrainer
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    E, L, K, B = 8, 8, 2, 16
+    E, L, B = 8, 8, 16
+    K = 8 if interleave else 2
     cfg = {
         "seed": 0,
         "env": {"type": "minatar_breakout", "num_envs": E, "time_limit": 12},
         "model": {"torso": "minatar_cnn", "cnn_channels": [8], "cnn_fc": 32,
                   "head": "dueling", "dueling_hidden": 16},
-        "replay": {"steps_per_env": 64},
+        "replay": {"steps_per_env": 64,
+                   "use_inserted_priorities": interleave},
         "algo": {"algo": "dqn", "batch_size": B, "n_step": 3, "lr": 1e-3,
                  "adam_eps": 1e-3, "grad_clip": 0.05,
-                 "target_update_freq": 1, "debug_outputs": True},
+                 "target_update_freq": 1, "debug_outputs": not interleave},
         "exploration": {"type": "epsilon_greedy", "eps_start": 1.0,
                         "eps_end": 1.0},
         "train": {"warmup_env_steps": 0, "chunk_len": L,
-                  "updates_per_chunk": K, "trainer": "fused"},
+                  "updates_per_chunk": K, "trainer": "fused",
+                  "interleave_updates": interleave},
     }
     g = torch.Generator().manual_seed(0)
     out, rings = [], []
     draws = None
     for dev in devices:
-        result_dir = ROOT / "results" / f"chip_smoke_fused_parity_{dev}"
+        result_dir = (ROOT / "results" / f"chip_smoke_fused_parity_{dev}"
+                      f"{'_interleaved' if interleave else ''}")
         shutil.rmtree(result_dir, ignore_errors=True)
         t = FusedApexTrainer(cfg, str(result_dir), device=dev)
         if draws is None:       # drawn once, on the CPU
@@ -1087,10 +1297,14 @@ def phase_fused_parity(devices=("cpu", "cuda")):
         rings.append({k: v.cpu() for k, v in t.replay_state.storage.items()})
         t.logger.close()
     for name, ring in rings[0].items():
-        check(torch.equal(ring, rings[1][name]),
-              f"fused parity: ring {name} differs")
+        same = (torch.allclose(ring, rings[1][name], rtol=1e-4, atol=1e-6)
+                if name == "priority" else torch.equal(ring, rings[1][name]))
+        check(same, f"fused parity: ring {name} differs")
     check(bool(rings[0]["done"].any()), "fused parity: no episode ended")
-    _compare_updates("fused superstep", out, 1e-4)
+    check(not interleave or bool(rings[0]["priority"].sum() > 0),
+          "fused parity: no actor-side priority stored")
+    _compare_updates("interleaved fused superstep with priorities"
+                     if interleave else "fused superstep", out, 1e-4)
 
 
 def phase_env_parity(steps: int = 150, E: int = 64):
@@ -1135,6 +1349,208 @@ def phase_env_parity(steps: int = 150, E: int = 64):
               f"{E} lanes ({n_done} resets)", flush=True)
 
 
+def phase_dqn_options(smi: str):
+    """Phase 9: the config-#2 path with its options, then with
+    Q(lambda)."""
+    import torch
+    from rltime_tpu_torch.training.learner import CenteredRMSProp
+    from rltime_tpu_torch.utils.transcript import Transcript
+    trainer, launches = run_path(DQN_OPTIONS_PATH)
+    n = DQN_OPTIONS_PATH["updates"]
+    check(launches == {"union_gather": n, "window_gather": n},
+          f"options: launches {launches} in {n} updates, expected one "
+          "union_gather and one window_gather per update")
+    mc, rc = trainer.model_cfg, trainer.replay_cfg
+    check(mc.channels_last and mc.space_to_depth and rc.sampler == "tree"
+          and rc.use_inserted_priorities, f"options not set: {mc} {rc}")
+    conv0 = trainer.train_state.model.torso.convs[0]
+    check(tuple(conv0.weight.shape) == (32, 64, 2, 2)
+          and conv0.stride == (1, 1), f"conv_0 {tuple(conv0.weight.shape)}")
+    opt = trainer.train_state.optimizer
+    check(isinstance(opt, CenteredRMSProp)
+          and all(bool(st["nu"].sum() > 0) for st in opt.state.values()),
+          "RMSProp state empty")
+    rs = trainer.replay_state
+    check(rs.tree.shape == (2 * 64 * 4096,) and math.isclose(
+        rs.tree[1].item(), rs.tree[64 * 4096:].sum().item(), rel_tol=1e-4),
+        "sum tree: root is not the sum of the leaves")
+    check(bool(rs.storage["priority"][:, :rs.t].sum() > 0)
+          and rs.max_priority.item() != 1.0,
+          "actor-side priorities did not reach the replay")
+    path = Path(trainer.result_dir) / "transcript.jsonl"
+    records = Transcript.load(str(path)).records
+    chunks = rs.t // trainer.loop_cfg.chunk_len
+    check(len(records) == chunks and sum("leaves" in r for r in records)
+          == n // trainer.loop_cfg.updates_per_chunk,
+          f"transcript: {len(records)} records for {chunks} chunks")
+    print(f"options run: conv_0 (32, 64, 2, 2) NHWC, RMSProp, sum tree of "
+          f"{rs.tree.shape[0]} nodes, actor-side priorities (max_priority "
+          f"{rs.max_priority.item():.6g}), {len(records)} transcript records",
+          flush=True)
+    phase_steady_state(trainer, smi, chunks=4, profiled=2)
+    del trainer
+    torch.cuda.empty_cache()
+    option_launches = launches
+
+    trainer, launches = run_path(DQN_LAMBDA_PATH)
+    n = DQN_LAMBDA_PATH["updates"]
+    check(trainer.algo_cfg.use_lambda
+          and launches == {"union_gather": 0, "window_gather": n},
+          f"Q(lambda): launches {launches} in {n} updates, expected one "
+          "window_gather per update and no union_gather")
+    phase_steady_state(trainer, smi, chunks=4, profiled=2)
+    return option_launches, launches
+
+
+def phase_cartpole():
+    """Phase 10: config #1's two presets as written, cut in length, then
+    the eval entry point on what each wrote."""
+    import torch
+    from rltime_tpu_torch import eval as eval_lib
+    from rltime_tpu_torch import train
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.training import checkpoint as ckpt_lib
+    keys = {"episodes", "return_mean", "return_median", "return_min",
+            "return_max", "checkpoint_step"}
+    for preset, steps in (("cartpole_dqn", 8_192),
+                          ("cartpole_dqn_device", 8_192)):
+        result_dir = ROOT / "results" / f"chip_smoke_{preset}"
+        shutil.rmtree(result_dir, ignore_errors=True)
+        gather.reset_counts()
+        t0 = time.perf_counter()
+        trainer = train.run([preset, "--device", "cuda", "--result-dir",
+                             str(result_dir),
+                             f"--train.total_env_steps={steps}",
+                             "--train.log_interval=2048"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_upd = trainer.updates_done
+        check(trainer.device.type == "cuda"
+              and not trainer.replay_cfg.prioritized
+              and trainer.replay_state.tree.shape == (1,),
+              f"{preset}: not uniform replay on cuda")
+        check(n_upd > 0 and gather.LAUNCHES == {
+            "union_gather": 0, "window_gather": n_upd}
+            and not any(gather.PLAIN_CALLS.values()),
+            f"{preset}: {n_upd} updates, launches {gather.LAUNCHES}, plain "
+            f"{gather.PLAIN_CALLS}")
+        loss = trainer.last_metrics["loss"].item()
+        check(math.isfinite(loss), f"{preset}: loss {loss}")
+        latest = ckpt_lib.latest_step(str(result_dir))
+        reports = {}
+        for best in (False, True):
+            rep = eval_lib.evaluate(str(result_dir), episodes=8, best=best,
+                                    device="cuda")
+            want = (ckpt_lib.best_step(str(result_dir)) or {}).get(
+                "step", latest) if best else latest
+            check(set(rep) == keys and rep["episodes"] == 8
+                  and rep["checkpoint_step"] == want
+                  and math.isfinite(rep["return_mean"])
+                  and rep["return_min"] >= 1,
+                  f"{preset}: eval report {rep} (best={best})")
+            reports[best] = rep
+        print(f"{preset}: {trainer.actor.env_steps} env steps, {n_upd} "
+              f"updates in {wall:.2f} s (uniform replay, one window_gather "
+              f"per update), last loss {loss:.6g}; eval latest "
+              f"{json.dumps(reports[False])}; eval --best "
+              f"{json.dumps(reports[True])}", flush=True)
+
+
+def phase_fused_options(smi: str):
+    """Phase 11: the fused trainer's options, each with a warm dispatch
+    during which any host sync raises."""
+    import torch
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    common = ["replay.use_inserted_priorities=true",
+              "train.total_env_steps=1000000000",
+              "train.log_interval=1000000000"]
+    cases = (("minatar_breakout_dqn", "interleaved + priorities",
+              ["train.interleave_updates=true",
+               "train.supersteps_per_dispatch=1"], 3),
+             ("minatar_breakout_iqn", "IQN + priorities + sum tree",
+              ["replay.sampler=tree", "train.supersteps_per_dispatch=1"], 0))
+    for preset, what, extra, timed in cases:
+        cfg = apply_overrides(load_config(preset), common + extra)
+        result_dir = ROOT / "results" / f"chip_smoke_fused_options_{preset}"
+        shutil.rmtree(result_dir, ignore_errors=True)
+        trainer = FusedApexTrainer(cfg, str(result_dir), device="cuda")
+        lc = trainer.loop_cfg
+        check(trainer.replay_cfg.chunk_len == (1 if lc.interleave_updates
+                                               else lc.chunk_len),
+              f"{what}: replay chunk_len {trainer.replay_cfg.chunk_len}")
+        gather.reset_counts()
+        while trainer.updates_done < 2 * lc.updates_per_chunk:
+            m = trainer.superstep()         # warmup, then two supersteps
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = trainer.superstep()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        loss = m["loss"].item()
+        check(math.isfinite(loss), f"{what}: loss {loss}")
+        check(gather.LAUNCHES == {"union_gather": 0,
+                                  "window_gather": trainer.updates_done}
+              and not any(gather.PLAIN_CALLS.values()),
+              f"{what}: launches {gather.LAUNCHES} in {trainer.updates_done} "
+              f"updates, plain {gather.PLAIN_CALLS}")
+        rs = trainer.replay_state
+        check(bool(rs.storage["priority"][:, :min(rs.t, 512)].sum() > 0)
+              and rs.t == trainer.env_steps // trainer.num_envs,
+              f"{what}: priorities or cursor wrong (t = {rs.t})")
+        print(f"no-sync check ({preset}, {what}): one warm superstep ran "
+              f"under set_sync_debug_mode('error'); {trainer.updates_done} "
+              f"updates, one window_gather each; last loss {loss:.6g}",
+              flush=True)
+        if timed:
+            L, E = lc.chunk_len, trainer.num_envs
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                trainer.superstep()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"steady state fused, {what} ({timed} warm supersteps of "
+                  f"{L} x {{act, insert, {lc.updates_per_chunk // L} "
+                  f"updates}}): {timed * L * E / wall:.1f} env-steps/s, "
+                  f"{timed * lc.updates_per_chunk / wall:.2f} updates/s, "
+                  f"{wall / timed * 1e3:.2f} ms/superstep  [{smi}]",
+                  flush=True)
+        trainer.logger.close()
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def phase_sum_tree_parity():
+    """The sum tree on the card vs on the CPU, bit-equal on dyadic
+    priorities: writes with duplicates (last wins), with `unique`, an
+    out-of-range index, then the leaves sampled on the same uniforms."""
+    import torch
+    from rltime_tpu_torch.ops import sum_tree
+    g = torch.Generator().manual_seed(0)
+    N, B = 5000, 256
+    prio = torch.randint(0, 64, (N,), generator=g).float() / 8.0
+    dup = torch.randint(0, 300, (B,), generator=g)
+    dup[:3] = torch.tensor([N + 5000, -1, 8191])
+    p_dup = torch.randint(0, 64, (B,), generator=g).float() / 8.0
+    u = torch.rand((B,), generator=g)
+    out = []
+    for dev in ("cpu", "cuda"):
+        t = sum_tree.set_priorities(sum_tree.init(N, dev),
+                                    torch.arange(N, device=dev),
+                                    prio.to(dev), unique=True)
+        t = sum_tree.set_priorities(t, dup.to(dev), p_dup.to(dev))
+        leaf, p = sum_tree.sample(t, u.to(dev))
+        out.append((t.cpu(), leaf.cpu(), p.cpu()))
+    for a, b, what in zip(*out, ("tree", "leaves", "priorities")):
+        check(torch.equal(a, b), f"sum tree parity: {what} differ")
+    check(bool((out[0][2] > 0).all()), "sum tree parity: a zero leaf sampled")
+    print(f"sum tree parity cuda vs cpu: tree of {out[0][0].shape[0]} nodes "
+          f"and {B} sampled leaves bit-equal (dyadic priorities)", flush=True)
+
+
+
 def main() -> int:
     if not (ROOT / "rltime_tpu_torch" / "__init__.py").is_file():
         fail(f"no rltime_tpu_torch package beside {Path(__file__).name}")
@@ -1144,6 +1560,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     smi = phase_environment()
     kern = phase_kernels(smi)
+    phase_option_timings(smi)
     trainer, dqn_launches = phase_dqn_path()
     phase_steady_state(trainer, smi, chunks=8, profiled=3)
     del trainer
@@ -1158,7 +1575,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_parity()
     phase_fused_parity()
+    phase_fused_parity(interleave=True)
+    phase_sum_tree_parity()
     phase_env_parity()
+    # back to PyTorch's defaults, which the parity phases switched off
+    torch.backends.cudnn.allow_tf32 = True
+    option_launches, lambda_launches = phase_dqn_options(smi)
+    torch.cuda.empty_cache()
+    phase_cartpole()
+    phase_fused_options(smi)
 
     def entry(name, source, replaces, by_path, main_path, main_tag, raw_tag,
               beside):
@@ -1189,7 +1614,9 @@ def main() -> int:
     def by_path(name):
         return {DQN_PATH["preset"]: dqn_launches[name],
                 R2D2_PATH["preset"]: r2d2_launches[name],
-                FUSED_PATH["preset"]: fused_launches[name]}
+                FUSED_PATH["preset"]: fused_launches[name],
+                DQN_OPTIONS_PATH["tag"]: option_launches[name],
+                DQN_LAMBDA_PATH["tag"]: lambda_launches[name]}
 
     # a gather does no arithmetic: each is bound by the bytes it moves
     record = {"kernels": [

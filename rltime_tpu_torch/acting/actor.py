@@ -15,6 +15,11 @@ burn-in resumes from) is written to device chunk buffers `rnn_c` and
 `rnn_h`; the carry never crosses to the host. Exploration draws
 (and the IQN acting taus) come from the actor's own generator and enter
 the act step as tensors.
+
+With `compute_priorities` (Ape-X actor-side initial priorities) each
+transition is emitted one policy step late, so that its 1-step TD
+estimate |r + gamma*(1-done)*max_a Q(s') - Q(s,a)| can ride along as the
+chunk's "priority" field; the chunk's obs then accumulate on the host.
 """
 from __future__ import annotations
 
@@ -73,11 +78,14 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
             the first obs of a new episode where done_prev).
           done_prev: (E,) bool — the previous step ended the episode.
           eps: (E,) per-lane exploration epsilon.
-          t_in_chunk: column of the chunk accumulator to fill.
+          t_in_chunk: column of the chunk accumulators to fill, or None
+            to leave them alone (the caller keeps `info["rnn"]`).
           explore_u: (E,) uniforms in [0, 1); a lane explores iff u < eps.
           random_a: (E,) int actions taken where a lane explores.
           taus: (E, num_tau_policy) acting quantile fractions (IQN).
-        Returns (actions (E,) int32, state, info dict).
+        Returns (actions (E,) int32, state, info dict: q_mean, the
+        chosen and the best action's value q_sa, q_best (E,), and for a
+        recurrent policy the carry this step consumed as "rnn").
         """
         E = obs.shape[0]
         # frame stack: zero pre-reset frames, append the new obs
@@ -86,17 +94,26 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
         frames = torch.cat([frames[:, 1:], obs[:, None].to(frames.dtype)],
                            dim=1)
         state.frames = frames
-        state.obs_chunk[:, t_in_chunk] = obs
+        if t_in_chunk is not None:
+            state.obs_chunk[:, t_in_chunk] = obs
 
         net_in = frames.reshape(E, -1) if flatten_stack else frames
+        if cfg.channels_last and net_in.ndim == 4:
+            # NHWC model contract: the rolling stack stays (E, F, H, W);
+            # only this per-step view is transposed (as the JAX version,
+            # every 4-D input is taken to be (E, F, H, W))
+            net_in = torch.movedim(net_in, 1, -1)
         head_kw = {"taus": taus} if cfg.is_iqn else {}
+        info = {}
         if cfg.recurrent:
             # reset on the episode boundary; store the carry THIS step
             # consumes (R2D2 storage)
             rmask = (1.0 - done_prev.to(torch.float32))[:, None]
             rnn = (state.rnn[0] * rmask, state.rnn[1] * rmask)
-            state.rnn_chunk[0][:, t_in_chunk] = rnn[0]
-            state.rnn_chunk[1][:, t_in_chunk] = rnn[1]
+            if t_in_chunk is not None:
+                state.rnn_chunk[0][:, t_in_chunk] = rnn[0]
+                state.rnn_chunk[1][:, t_in_chunk] = rnn[1]
+            info["rnn"] = rnn
             q, state.rnn = model(net_in, rnn, **head_kw)
         else:
             q = model(net_in, **head_kw)
@@ -104,7 +121,10 @@ def make_act_step(cfg: ModelConfig, frame_stack: int, flatten_stack: bool):
         greedy = torch.argmax(qv, dim=-1).to(torch.int32)
         actions = torch.where(explore_u < eps, random_a.to(torch.int32),
                               greedy)
-        info = dict(q_mean=torch.mean(qv))
+        info.update(
+            q_mean=torch.mean(qv),
+            q_sa=torch.gather(qv, -1, actions.long()[:, None])[:, 0],
+            q_best=torch.max(qv, dim=-1).values)
         return actions, state, info
 
     return act_step
@@ -115,17 +135,28 @@ class Actor:
 
     Produces fixed-shape transition chunks: obs (E, L, ...) raw single
     frames on the device, action/reward/terminated/done (E, L) numpy.
-    Tracks per-env episode returns/lengths host-side."""
+    Tracks per-env episode returns/lengths host-side.
+
+    `compute_priorities`: the chunk also carries "priority" (E, L), the
+    raw 1-step |TD| of each transition (bootstrap masked by done, not
+    terminated: at a done step s' is the next episode's reset obs, which
+    no target bootstraps from). Transitions are then emitted one policy
+    step late, and the obs accumulate in a host buffer instead of the
+    device chunk accumulator."""
 
     def __init__(self, env, cfg: ModelConfig, frame_stack: int,
                  exploration, generator: torch.Generator, chunk_len: int,
-                 device: torch.device):
+                 device: torch.device, compute_priorities: bool = False,
+                 gamma: float = 0.99):
         self.env = env
         self.cfg = cfg
         self.exploration = exploration
         self.generator = generator
         self.chunk_len = chunk_len
         self.device = device
+        self.compute_priorities = compute_priorities
+        self.gamma = gamma
+        self._pending = None
         spec = env.spec
         self._act_step = make_act_step(cfg, frame_stack,
                                        len(spec.obs_shape) == 1)
@@ -146,16 +177,38 @@ class Actor:
         """Collect one chunk of `chunk_len` lockstep transitions.
 
         Returns (chunk dict, each field (E, L, ...), info dict); `obs`
-        and, for a recurrent policy, `rnn_c`/`rnn_h` are device
-        tensors."""
+        (a host array with `compute_priorities`) and, for a recurrent
+        policy, `rnn_c`/`rnn_h` are device tensors."""
         L, E = self.chunk_len, self.env.num_envs
         dev, gen = self.device, self.generator
+        spec = self.env.spec
+        late = self.compute_priorities
+        obs_buf = (np.empty((E, L) + tuple(spec.obs_shape), spec.obs_dtype)
+                   if late else None)
         act_buf = np.empty((E, L), np.int32)
         rew_buf = np.empty((E, L), np.float32)
         term_buf = np.empty((E, L), bool)
         done_buf = np.empty((E, L), bool)
+        prio_buf = np.empty((E, L), np.float32) if late else None
+        rnn_steps = []
         q_mean = None
-        for i in range(L):
+        emitted = 0
+
+        def emit(tr, prio=None):
+            nonlocal emitted
+            i = emitted
+            if late:
+                obs_buf[:, i] = tr["obs"]
+                prio_buf[:, i] = prio
+                if self.cfg.recurrent:
+                    rnn_steps.append(tr["rnn"])
+            act_buf[:, i] = tr["action"]
+            rew_buf[:, i] = tr["reward"]
+            term_buf[:, i] = tr["terminated"]
+            done_buf[:, i] = tr["done"]
+            emitted += 1
+
+        while emitted < L:
             eps = self.exploration.epsilons(E, self.env_steps)
             explore_u = torch.rand((E,), generator=gen, device=dev)
             random_a = torch.randint(0, self.cfg.num_actions, (E,),
@@ -166,14 +219,26 @@ class Actor:
                 model, self.state,
                 torch.from_numpy(np.ascontiguousarray(self.obs)).to(dev),
                 torch.from_numpy(self.done_prev).to(dev),
-                torch.from_numpy(eps).to(dev), i, explore_u, random_a, taus)
+                torch.from_numpy(eps).to(dev), None if late else emitted,
+                explore_u, random_a, taus)
+            if late and self._pending is not None:
+                p = self._pending
+                emit(p, np.abs(
+                    p["reward"] + self.gamma
+                    * (1.0 - p["done"].astype(np.float32))
+                    * info["q_best"].cpu().numpy() - p["q_sa"]))
             actions_np = actions.cpu().numpy()
+            obs_cur = self.obs
             next_obs, rew, term, trunc = self.env.step(actions_np)
             done = term | trunc
-            act_buf[:, i] = actions_np
-            rew_buf[:, i] = rew
-            term_buf[:, i] = term
-            done_buf[:, i] = done
+            tr = dict(action=actions_np, reward=rew, terminated=term,
+                      done=done)
+            if late:
+                tr.update(obs=obs_cur, q_sa=info["q_sa"].cpu().numpy(),
+                          rnn=info.get("rnn"))
+                self._pending = tr
+            else:
+                emit(tr)
             self._ep_ret += rew
             self._ep_len += 1
             for j in np.nonzero(done)[0]:
@@ -186,9 +251,15 @@ class Actor:
             self.env_steps += E
             q_mean = info["q_mean"]
         # Clone out of the accumulator: the next chunk overwrites it.
-        chunk = dict(obs=self.state.obs_chunk.clone(), action=act_buf,
-                     reward=rew_buf, terminated=term_buf, done=done_buf)
-        if self.cfg.recurrent:
+        chunk = dict(obs=obs_buf if late else self.state.obs_chunk.clone(),
+                     action=act_buf, reward=rew_buf, terminated=term_buf,
+                     done=done_buf)
+        if late:
+            chunk["priority"] = prio_buf
+        if self.cfg.recurrent and late:
+            chunk["rnn_c"] = torch.stack([r[0] for r in rnn_steps], dim=1)
+            chunk["rnn_h"] = torch.stack([r[1] for r in rnn_steps], dim=1)
+        elif self.cfg.recurrent:
             chunk["rnn_c"] = self.state.rnn_chunk[0].clone()
             chunk["rnn_h"] = self.state.rnn_chunk[1].clone()
         return chunk, dict(env_steps=self.env_steps, q_mean=float(q_mean))

@@ -35,7 +35,7 @@ import torch
 from rltime_tpu_torch.models.policy import (
     ModelConfig, QPolicy, RnnState, initial_rnn_state, q_values,
 )
-from rltime_tpu_torch.utils.prng import make_generator
+from rltime_tpu_torch.utils.prng import derived_generator, make_generator
 
 STATS_RING = 256  # last-K completed episode returns kept on the device
 
@@ -127,7 +127,8 @@ def eps_schedule(exploration, num_envs: int, env_steps: int, num_steps: int,
     return eps
 
 
-def make_rollout_core(env, cfg: ModelConfig, chunk_len: int):
+def make_rollout_core(env, cfg: ModelConfig, chunk_len: int,
+                      compute_priorities: bool = False, gamma: float = 0.99):
     """Build rollout(model, state, eps (L, E), draws=None) ->
     (state, chunk) for a device env.
 
@@ -135,7 +136,16 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int):
     env.step_draws(...)} replacing the generators' draws. The chunk's
     fields are (E, L, ...): obs, action int32, reward f32, terminated,
     done and, for a recurrent policy, the carry each step CONSUMED
-    (after the `done_prev` reset) as rnn_c/rnn_h."""
+    (after the `done_prev` reset) as rnn_c/rnn_h.
+
+    With `compute_priorities` the chunk carries a "priority" field: the
+    Ape-X actor-side 1-step TD estimate |r_t + gamma*(1-done_t)*
+    max_a Q(s_{t+1}) - Q(s_t, a_t)|, from the values each step computed
+    anyway; only the last column needs one extra forward on the
+    post-chunk observation. The IQN taus of that forward come from a
+    generator DERIVED from the actor's, not from the actor's own, so the
+    actor's stream is the same with and without priorities (a test
+    injects them as an (L+1)-th `draws` entry {"taus": ...})."""
     L = chunk_len
 
     def body(model: QPolicy, state: DeviceActorState, eps: torch.Tensor,
@@ -153,7 +163,8 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int):
         stored_rnn = rnn
         out = model(obs, rnn, act.get("taus"))
         q, rnn = out if cfg.recurrent else (out, None)
-        greedy = torch.argmax(q_values(cfg, q), dim=-1).to(torch.int32)
+        qv = q_values(cfg, q)
+        greedy = torch.argmax(qv, dim=-1).to(torch.int32)
         actions = torch.where(act["explore_u"] < eps,
                               act["random_a"].to(torch.int32), greedy)
 
@@ -178,9 +189,28 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int):
 
         rec = dict(obs=obs, action=actions, reward=rew, terminated=term,
                    done=done)
+        if compute_priorities:
+            rec["q_sa"] = torch.gather(qv, -1, actions.long()[:, None])[:, 0]
+            rec["q_best"] = torch.max(qv, dim=-1).values
         if cfg.recurrent:
             rec["rnn_c"], rec["rnn_h"] = stored_rnn
         return rec
+
+    def final_qbest(model: QPolicy, state: DeviceActorState,
+                    taus: Optional[torch.Tensor]):
+        """max_a Q of the post-chunk observation, (E,)."""
+        obs = env.observe(state.env_state)
+        rnn = state.rnn
+        if cfg.recurrent:
+            m = (1.0 - state.done_prev.to(torch.float32))[:, None]
+            rnn = (rnn[0] * m, rnn[1] * m)
+        if cfg.is_iqn and taus is None:
+            taus = torch.rand(
+                (obs.shape[0], cfg.num_tau_policy), device=obs.device,
+                generator=derived_generator(state.generator, "final_qbest"))
+        out = model(obs, rnn, taus)
+        q = out[0] if cfg.recurrent else out
+        return torch.max(q_values(cfg, q), dim=-1).values
 
     @torch.no_grad()
     def rollout(model: QPolicy, state: DeviceActorState, eps: torch.Tensor,
@@ -189,6 +219,19 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int):
                 for i in range(L)]
         chunk = {k: torch.stack([r[k] for r in recs], dim=1)
                  for k in recs[0]}
+        if compute_priorities:
+            q_sa, q_best = chunk.pop("q_sa"), chunk.pop("q_best")   # (E, L)
+            q_last = final_qbest(
+                model, state,
+                draws[L].get("taus") if draws and len(draws) > L else None)
+            q_next = torch.cat([q_best[:, 1:], q_last[:, None]], dim=1)
+            # bootstrap masked by done (terminated OR truncated): at a
+            # done step q_next is Q of the NEXT episode's reset obs, an
+            # unrelated state, and the learner's own targets never
+            # bootstrap through a done boundary either
+            nondone = 1.0 - chunk["done"].to(torch.float32)
+            chunk["priority"] = torch.abs(
+                chunk["reward"] + gamma * nondone * q_next - q_sa)
         return state, chunk
 
     return rollout
@@ -214,7 +257,8 @@ class DeviceActor:
 
     def __init__(self, env, num_envs: int, cfg: ModelConfig, exploration,
                  seed: int, chunk_len: int, device: torch.device,
-                 reset_draws=None):
+                 reset_draws=None, compute_priorities: bool = False,
+                 gamma: float = 0.99):
         self.env = env
         self.cfg = cfg
         self.num_envs = num_envs
@@ -223,7 +267,8 @@ class DeviceActor:
         self.device = device
         self.state = init_device_actor_state(env, cfg, num_envs, seed,
                                              device, reset_draws)
-        self._rollout = make_rollout_core(env, cfg, chunk_len)
+        self._rollout = make_rollout_core(env, cfg, chunk_len,
+                                          compute_priorities, gamma)
         self.env_steps = 0
         self._stats_popped = 0
 

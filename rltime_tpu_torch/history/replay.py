@@ -1,4 +1,5 @@
-"""Device-resident replay: time-major per-env rings + dense PER.
+"""Device-resident replay: time-major per-env rings + PER (dense
+two-level sampler or binary sum tree) or uniform sampling.
 
 Port of `rltime_tpu/history/replay.py`. Storage lives on the device as
 fixed-shape `(E, T, ...)` tensors (env-major, time-minor); envs step in
@@ -34,8 +35,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from rltime_tpu_torch import not_ported
-from rltime_tpu_torch.ops import dense_tree, gather
+from rltime_tpu_torch.ops import dense_tree, gather, sum_tree
+
+
+def _tree_ops(cfg: "ReplayConfig"):
+    """Priority-structure backend for this replay (see cfg.sampler)."""
+    return dense_tree if cfg.sampler == "dense" else sum_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +54,12 @@ class ReplayConfig:
     prioritized: bool = True
     alpha: float = 0.6       # PER exponent (priorities stored ^alpha)
     min_priority: float = 1e-6
+    # "dense" (ops/dense_tree.py: flat array + block sums, the default)
+    # or "tree" (ops/sum_tree.py: the classic binary sum tree)
     sampler: str = "dense"
+    # Ape-X actor-side initial priorities: when True and the chunk
+    # carries a "priority" field (raw |TD| estimates from the actor),
+    # activation uses (p + min_priority)^alpha instead of max-priority
     use_inserted_priorities: bool = False
 
     def __post_init__(self):
@@ -57,14 +67,6 @@ class ReplayConfig:
             raise ValueError(
                 f"sampler must be 'dense' or 'tree', got "
                 f"{self.sampler!r}")
-        if self.sampler == "tree":
-            raise not_ported("replay.sampler='tree'", "sum_tree")
-        if not self.prioritized:
-            raise not_ported("replay.prioritized=false (uniform replay)",
-                             "remaining options")
-        if self.use_inserted_priorities:
-            raise not_ported("replay.use_inserted_priorities",
-                             "mesh, apex, pool")
         if self.steps_per_env % self.chunk_len != 0:
             raise ValueError("steps_per_env must be a multiple of "
                              "chunk_len (keeps ring inserts unsplit)")
@@ -86,7 +88,8 @@ class ReplayState:
     in place."""
     storage: Dict[str, torch.Tensor]   # each (E, T, ...)
     t: int                             # unwrapped write cursor (columns)
-    tree: torch.Tensor                 # (N,) dense PER priorities
+    tree: torch.Tensor                 # dense (N,) priorities, (2N,) sum
+                                       # tree, or a (1,) dummy if uniform
     max_priority: torch.Tensor         # f32 scalar, already ^alpha
 
 
@@ -100,9 +103,11 @@ def replay_init(cfg: ReplayConfig,
                           device=device)
         for name, (shape, dtype) in field_specs.items()
     }
+    tree = (_tree_ops(cfg).init(cfg.capacity, device=device)
+            if cfg.prioritized
+            else torch.zeros((1,), dtype=torch.float32, device=device))
     return ReplayState(
-        storage=storage, t=0,
-        tree=dense_tree.init(cfg.capacity, device=device),
+        storage=storage, t=0, tree=tree,
         max_priority=torch.ones((), dtype=torch.float32, device=device))
 
 
@@ -121,33 +126,50 @@ def replay_insert(cfg: ReplayConfig, state: ReplayState,
                   chunk: Dict[str, Any]) -> ReplayState:
     """Insert an acting chunk (each field (E, L, ...), numpy or tensor).
 
-    Writes columns [t, t+L) (mod T) for all envs in place, zeroes the
-    overwritten columns' priorities (and the columns `lookback` ahead,
-    whose stack frames were clobbered), and activates columns
-    [t-horizon, t+L-horizon) at max priority."""
+    Writes columns [t, t+L) (mod T) for all envs in place and, when
+    prioritized, zeroes the overwritten columns' priorities (and the
+    columns `lookback` ahead, whose stack frames were clobbered) and
+    activates columns [t-horizon, t+L-horizon): at max priority, or with
+    `use_inserted_priorities` and a stored "priority" field at the
+    actor's (p + min_priority)^alpha, which also raises max_priority."""
     E, T, L = cfg.num_envs, cfg.steps_per_env, cfg.chunk_len
     col = state.t % T
     device = state.tree.device
     for name, arr in chunk.items():
         state.storage[name][:, col:col + L].copy_(_as_tensor(arr, device))
+    if not cfg.prioritized:
+        state.t += L
+        return state
 
+    st = _tree_ops(cfg)
     env_ids = torch.arange(E, device=device).repeat_interleave(L)
     offs = torch.arange(L, device=device).repeat(E)
     tree = state.tree
     dead = _flat_leaf(cfg, env_ids, torch.remainder(col + offs, T))
-    tree = dense_tree.set_priorities(
+    tree = st.set_priorities(
         tree, dead, torch.zeros_like(dead, dtype=tree.dtype), unique=True)
     if cfg.lookback > 0:
         dead2 = _flat_leaf(cfg, env_ids,
                            torch.remainder(col + offs + cfg.lookback, T))
-        tree = dense_tree.set_priorities(
+        tree = st.set_priorities(
             tree, dead2, torch.zeros_like(dead2, dtype=tree.dtype),
             unique=True)
     act_u = state.t + offs - cfg.horizon      # unwrapped times
-    live = _flat_leaf(cfg, env_ids, torch.remainder(act_u, T))
-    prio = torch.where(act_u >= 0, state.max_priority,
+    act_cols = torch.remainder(act_u, T)
+    live = _flat_leaf(cfg, env_ids, act_cols)
+    inserted = cfg.use_inserted_priorities and "priority" in state.storage
+    if inserted:
+        raw = state.storage["priority"][env_ids, act_cols]
+        base = (raw + cfg.min_priority) ** cfg.alpha
+    else:
+        base = state.max_priority
+    prio = torch.where(act_u >= 0, base,
                        torch.zeros((), dtype=tree.dtype, device=device))
-    state.tree = dense_tree.set_priorities(tree, live, prio, unique=True)
+    state.tree = st.set_priorities(tree, live, prio.to(tree.dtype),
+                                   unique=True)
+    if inserted:
+        state.max_priority = torch.maximum(state.max_priority,
+                                           torch.max(prio))
     state.t += L
     return state
 
@@ -164,22 +186,40 @@ def replay_sample_indices(cfg: ReplayConfig, state: ReplayState,
                           batch: int, beta,
                           generator: Optional[torch.Generator] = None,
                           u: Optional[torch.Tensor] = None):
-    """PER sample of (env, col) pairs + normalized importance weights.
+    """Sample (env, col) pairs + normalized importance weights.
 
-    Stratified dense-tree draw with uniforms `u` (B,), or fresh ones
-    from `generator`; weights (N*P)^-beta / max. Returns
-    dict(env int32, col int32, leaf int64, weight f32, num_valid)."""
-    T = cfg.steps_per_env
+    PER: a stratified draw from the priority structure with uniforms `u`
+    (B,), or fresh ones from `generator`; weights (N*P)^-beta / max.
+    Uniform (`prioritized=False`): iid over the valid unwrapped range,
+    all weights 1; `u` is then the pair of integer draws (column offsets
+    (B,) in [0, max(hi-lo, 1)), envs (B,) in [0, E)), the offsets drawn
+    first. Returns dict(env int32, col int32, leaf int64, weight f32,
+    num_valid)."""
+    E, T = cfg.num_envs, cfg.steps_per_env
     lo, hi = valid_range(cfg, state.t)
-    num_valid = (hi - lo) * cfg.num_envs
+    num_valid = (hi - lo) * E
     tree = state.tree
+    if not cfg.prioritized:
+        if u is None:
+            u = (torch.randint(0, max(hi - lo, 1), (batch,),
+                               generator=generator, device=tree.device),
+                 torch.randint(0, E, (batch,), generator=generator,
+                               device=tree.device))
+        offset, env = (x.long() for x in u)
+        col = torch.remainder(lo + offset, T)
+        return dict(env=env.to(torch.int32), col=col.to(torch.int32),
+                    leaf=_flat_leaf(cfg, env, col),
+                    weight=torch.ones((batch,), dtype=torch.float32,
+                                      device=tree.device),
+                    num_valid=num_valid)
+    st = _tree_ops(cfg)
     if u is None:
         u = torch.rand((batch,), generator=generator, dtype=tree.dtype,
                        device=tree.device)
-    leaf, prio = dense_tree.sample(tree, u)
+    leaf, prio = st.sample(tree, u)
     env = leaf // T
     col = leaf - env * T
-    p = prio / torch.clamp(dense_tree.total(tree), min=1e-30)
+    p = prio / torch.clamp(st.total(tree), min=1e-30)
     w = (float(num_valid) * p) ** (-beta)
     # a zero weight (not inf/NaN) is the safe failure on a zero leaf
     w = torch.where(prio > 0, w, torch.zeros_like(w))
@@ -197,13 +237,17 @@ def replay_update_priorities(cfg: ReplayConfig, state: ReplayState,
 
     Updates to leaves zeroed since sampling (overwritten by inserts)
     are dropped so dead entries cannot be resurrected; `keep` (B,) 0/1
-    writes priority 0 instead (drains truncation-biased windows)."""
+    writes priority 0 instead (drains truncation-biased windows).
+    Uniform replay has no priorities: the state comes back as it is."""
+    if not cfg.prioritized:
+        return state
     p = (td_abs + cfg.min_priority) ** cfg.alpha
     if keep is not None:
         p = p * keep.to(p.dtype)
-    cur = dense_tree.get(state.tree, leaf)
+    st = _tree_ops(cfg)
+    cur = st.get(state.tree, leaf)
     p = torch.where(cur > 0, p, torch.zeros_like(p))
-    state.tree = dense_tree.set_priorities(state.tree, leaf, p)
+    state.tree = st.set_priorities(state.tree, leaf, p)
     state.max_priority = torch.maximum(state.max_priority, torch.max(p))
     return state
 
@@ -281,6 +325,25 @@ def frame_stack_union_gather(cfg: ReplayConfig, state: ReplayState,
         env.to(torch.int32), col.to(torch.int32), num_frames, n_step)
 
 
+def frame_stack_union_gather_nhwc(cfg: ReplayConfig, state: ReplayState,
+                                  env: torch.Tensor, col: torch.Tensor,
+                                  num_frames: int, n_step: int,
+                                  obs_field: str = "obs",
+                                  done_field: str = "done"):
+    """The union gather emitted CHANNELS-LAST: (B, H, W, F) stacks.
+
+    The same bytes as `frame_stack_union_gather` modulo the axis order
+    (the JAX version builds them from one row gather per union slot).
+    Here it is the one K2 launch followed by a layout change: the frame
+    axis moves last and the result is made contiguous, so a
+    `channels_last` torso gets NHWC memory. Returns (obs_t, obs_tn),
+    each (B, ..., num_frames)."""
+    return tuple(
+        torch.movedim(x, 1, -1).contiguous()
+        for x in frame_stack_union_gather(cfg, state, env, col, num_frames,
+                                          n_step, obs_field, done_field))
+
+
 def sequence_stack_gather(cfg: ReplayConfig, state: ReplayState,
                           env: torch.Tensor, col: torch.Tensor,
                           length: int, num_frames: int, extra=()):
@@ -308,16 +371,27 @@ def sequence_stack_gather(cfg: ReplayConfig, state: ReplayState,
         [("obs", F - 1, length + F - 1),       # (B, length+F-1, ...)
          ("done", D, length + D),              # (B, length+D)
          *extra])
+    return stacks_from_window(rows, dones, length, F), dones, extras
+
+
+def stacks_from_window(rows: torch.Tensor, dones: torch.Tensor,
+                       length: int, num_frames: int) -> torch.Tensor:
+    """The PyTorch half of `sequence_stack_gather`: the gathered obs
+    window (B, length + F - 1, ...) and done window (B, length + D) to
+    the masked per-step stacks (B, length, F, ...). The strided view
+    costs nothing; the validity product writes every stack out."""
+    F = num_frames
+    D = max(F - 1, 1)
     B = rows.shape[0]
     row_shape = tuple(rows.shape[2:])
     stacks = rows.as_strided((B, length, F) + row_shape,
                              (rows.stride(0), rows.stride(1),
                               rows.stride(1)) + rows.stride()[2:])
     if F == 1:
-        return stacks, dones, extras
+        return stacks
     # done flags of step t's stack, old..new: done[col+t-j], j = F-1..1
     sd = dones[:, D - (F - 1):D - 1 + length]            # (B, length+F-2)
     sd = sd.unfold(1, F - 1, 1)                          # (B, length, F-1)
     valid = gather.stack_validity(sd.reshape(B * length, F - 1), rows.dtype)
     valid = valid.reshape((B, length, F) + (1,) * len(row_shape))
-    return stacks * valid, dones, extras
+    return stacks * valid

@@ -17,6 +17,15 @@ The JAX package's `QPolicy` params (`{"params": {"torso_mod": ...,
     hg, ho` (H, H) kernels with a bias. Their transposes stack, in
     i, f, g, o order, into the port's `lstm.weight_ih` (4H, in) and
     `lstm.weight_hh` (4H, H); the hidden biases into `lstm.bias_hh`.
+  * with `model.space_to_depth` flax's `Conv_0` kernel is
+    (2, 2, 16 C, out) over the patched input; the conv rule above carries
+    it as it is, because the port's torso patches its input in the same
+    `(r_h, r_w, c)` channel order as the JAX reshape (models/torso.py).
+Whatever has the params' structure crosses the same way: optax's Adam
+or RMSProp moments (`mu`, `nu`) go through `flax_to_state_dict` and land
+under the names of `named_parameters()`. A JAX sum tree or dense tree
+needs no bridge: the port keeps the `(2N,)` / `(N,)` layouts, so
+`torch.from_numpy` of the array is the port's tree.
 No jax import: callers convert params with `np.asarray` leaf-wise.
 """
 from __future__ import annotations

@@ -19,7 +19,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rltime_tpu_torch import not_ported
 from rltime_tpu_torch.models.heads import (
     DuelingQHead, IQNHead, LinearQHead,
 )
@@ -47,6 +46,10 @@ class ModelConfig:
     num_tau_prime: int = 64             # training target taus
     num_tau_policy: int = 32            # acting taus (risk-neutral mean)
     compute_dtype: str = "float32"      # "float32" | "bfloat16"
+    # Nature-CNN options (torso.NatureCNNTorso): the NHWC obs contract
+    # (a 4-D model input is (B, H, W, F); the learner's gather emits it,
+    # the actor transposes its per-step stack) and the exact conv_0
+    # space-to-depth rewrite
     channels_last: bool = False
     space_to_depth: bool = False
 
@@ -55,10 +58,11 @@ class ModelConfig:
             raise ValueError(f"unknown torso {self.torso!r}")
         if self.head not in ("linear", "dueling", "iqn"):
             raise ValueError(f"unknown head {self.head!r}")
-        if self.channels_last:
-            raise not_ported("model.channels_last", "remaining options")
-        if self.space_to_depth:
-            raise not_ported("model.space_to_depth", "remaining options")
+        if ((self.channels_last or self.space_to_depth)
+                and self.torso != "nature_cnn"):
+            raise ValueError(
+                "channels_last/space_to_depth are Nature-CNN options "
+                f"(torso={self.torso!r})")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"unknown compute_dtype {self.compute_dtype!r}")
@@ -130,7 +134,7 @@ class QPolicy(nn.Module):
     (B, N, A) quantile values at `taus` (B, N), which it requires.
 
     `in_shape` is one sample's model input: (F, H, W) frames for the
-    Nature CNN, (F, H, W, C) for the MinAtar CNN (which also takes a
+    Nature CNN ((H, W, F) with `channels_last`), (F, H, W, C) for the MinAtar CNN (which also takes a
     device env's raw (B, H, W, C) planes), (D,) for the MLP. Parameters
     are created on the CPU from `generator`; move the module with
     `.to(device)`."""
@@ -144,7 +148,9 @@ class QPolicy(nn.Module):
                                   cfg.mlp_hidden, cfg.dtype, generator)
         elif cfg.torso == "nature_cnn":
             self.torso = NatureCNNTorso(in_shape, cfg.cnn_channels,
-                                        cfg.cnn_fc, cfg.dtype, generator)
+                                        cfg.cnn_fc, cfg.dtype, generator,
+                                        cfg.channels_last,
+                                        cfg.space_to_depth)
         else:
             self.torso = MinAtarCNNTorso(in_shape, cfg.cnn_channels,
                                          cfg.cnn_fc, cfg.dtype, generator)

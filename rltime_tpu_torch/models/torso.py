@@ -110,19 +110,47 @@ class NatureCNNTorso(nn.Module):
     Input: (B, F, H, W) stacked frames (uint8 frames are scaled to
     [0, 1]); torch's NCHW takes F as channels directly. The conv output
     is flattened in NHWC order, as flax's is, so the FC weight is the
-    transposed flax kernel with no row permutation."""
+    transposed flax kernel with no row permutation.
+
+    `channels_last`: the input arrives (B, H, W, F), as the learner's
+    NHWC gather emits it, and `in_shape` is (H, W, F). The convs then
+    run in torch's `channels_last` memory format: the logical NCHW view
+    of NHWC memory, so no relayout happens between the gather and
+    conv_0 and the final NHWC flatten is a view.
+
+    `space_to_depth`: conv_0 (8x8 stride 4 on C channels) becomes the
+    EXACT equivalent 2x2 stride 1 conv on 4x4-patched input with 16*C
+    channels, patch-major `(r_h, r_w, c)` as the JAX version's reshape
+    orders them, so its weight is the transposed flax `(2, 2, 16C, 32)`
+    kernel like any other conv's. Parameter shapes change, so it is a
+    config option, not a checkpoint-compatible toggle."""
 
     KERNELS, STRIDES = (8, 4, 3), (4, 2, 1)
 
     def __init__(self, in_shape: Sequence[int],
                  channels: Sequence[int] = (32, 64, 64), fc: int = 512,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 channels_last: bool = False, space_to_depth: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
-        c, h, w = in_shape
+        self.channels_last = channels_last
+        self.space_to_depth = space_to_depth
+        if channels_last:
+            h, w, c = in_shape
+        else:
+            c, h, w = in_shape
+        kernels, strides = self.KERNELS, self.STRIDES
+        if space_to_depth:
+            r = strides[0]
+            if h % r or w % r:
+                raise ValueError("space_to_depth needs H, W divisible by "
+                                 "conv_0 stride")
+            c, h, w = r * r * c, h // r, w // r
+            kernels = (kernels[0] // r,) + kernels[1:]
+            strides = (1,) + strides[1:]
         convs = []
-        for ch, k, s in zip(channels, self.KERNELS, self.STRIDES):
+        for ch, k, s in zip(channels, kernels, strides):
             conv = nn.Conv2d(c, ch, k, stride=s)
             lecun_normal_(conv.weight, k * k * c, generator)
             nn.init.zeros_(conv.bias)
@@ -134,6 +162,19 @@ class NatureCNNTorso(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
+        # layout ops run on the raw bytes, before the float cast
+        if self.space_to_depth:
+            if not self.channels_last:
+                x = x.permute(0, 2, 3, 1)               # (B, H, W, C)
+            b, h, w, c = x.shape
+            r = self.STRIDES[0]
+            x = x.reshape(b, h // r, r, w // r, r, c)
+            x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // r, w // r,
+                                                    r * r * c)
+            x = x.permute(0, 3, 1, 2)       # NCHW view of NHWC memory
+        elif self.channels_last:
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
         if x.dtype == torch.uint8:
             x = x.to(dt) / 255.0
         else:

@@ -27,9 +27,18 @@ paths agree bit for bit (tests/test_torch_fused.py). The JAX version's
 at d=1 and are not carried over: the actor state is
 `device_actor.DeviceActorState` itself, the act phase is
 `make_rollout_core` itself, and a mesh is refused (ROADMAP.md).
+
+Options: actor-side initial priorities
+(`replay.use_inserted_priorities`: the rollout core emits each
+transition's 1-step |TD|), `train.interleave_updates` (one loop of L
+iterations of {one env step, a one-column insert, K/L updates}, the
+replay running with chunk_len 1) and `train.record_transcript` (S = 1,
+no warmup: one record per chunk, `utils/transcript.py`).
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -58,28 +67,50 @@ from rltime_tpu_torch.training.r2d2 import (
     make_r2d2_update_step, r2d2_horizon,
 )
 from rltime_tpu_torch.training.trainer import (
-    TrainLoopConfig, _mk_model_cfg, replay_fields,
+    TrainLoopConfig, _mk_model_cfg, model_in_shape, replay_fields,
 )
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str
+from rltime_tpu_torch.utils.transcript import Transcript
 
 
 def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                    replay_cfg: ReplayConfig, chunk_len: int,
                    num_updates: int, frame_stack: int = 1,
-                   flatten: bool = True):
+                   flatten: bool = True, compute_priorities: bool = False,
+                   interleave: bool = False):
     """Build superstep(tstate, astate, rstate, eps (L, E), beta,
     draws=None) -> (tstate, astate, rstate, metrics): act L steps,
     insert the chunk, run `num_updates` learner updates. All three
     states are updated in place. `draws` = {"act": [L rollout-step
     draws], "update": [K update draws]} injects the random numbers
-    (tests)."""
+    (tests).
+
+    `interleave` (train.interleave_updates): ONE loop of chunk_len
+    iterations, each {1 env step over all lanes + a 1-column insert +
+    num_updates / chunk_len learner updates}; `replay_cfg` then has
+    chunk_len 1. The same work per superstep as the act-then-update
+    shape at a per-STEP cadence: updates sample data at most one step
+    old, priorities and the acting weights refresh every step, and the
+    1-column insert frees chunk_len from the ring-safety bound
+    steps_per_env >= 2*(chunk_len + horizon)."""
     if algo_cfg.algo == "r2d2":
         update = make_r2d2_update_step(model_cfg, algo_cfg, replay_cfg,
                                        frame_stack, flatten)
     else:
         update = make_update_step(algo_cfg, replay_cfg, frame_stack, flatten)
-    act = make_rollout_core(env, model_cfg, chunk_len)
+    act = make_rollout_core(env, model_cfg, 1 if interleave else chunk_len,
+                            compute_priorities, algo_cfg.gamma)
+    if interleave:
+        if num_updates % chunk_len != 0:
+            raise ValueError(
+                "interleave_updates needs updates_per_chunk to be a "
+                f"multiple of chunk_len (got {num_updates} per "
+                f"{chunk_len})")
+        if algo_cfg.debug_outputs:
+            raise ValueError("debug_outputs/transcripts are not "
+                             "supported with interleave_updates")
+        num_updates //= chunk_len       # per env step
     insert_update = make_insert_and_update_step(replay_cfg, update,
                                                 num_updates)
 
@@ -88,19 +119,45 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
         astate, chunk = act(tstate.model, astate, eps, draws.get("act"))
         tstate, rstate, metrics = insert_update(tstate, rstate, chunk, beta,
                                                 draws.get("update"))
+        if algo_cfg.debug_outputs:
+            # the chunk's actions ride out for the transcript's actions
+            # digest (Trainer records the same)
+            metrics["debug_chunk_action"] = chunk["action"]
         return tstate, astate, rstate, metrics
 
-    return superstep
+    def superstep_interleaved(tstate, astate, rstate, eps, beta, draws=None):
+        draws = draws or {}
+        a, u, k = draws.get("act"), draws.get("update"), num_updates
+        metrics = {}
+        for t in range(chunk_len):
+            astate, col = act(tstate.model, astate, eps[t:t + 1],
+                              a[t:t + 1] if a else None)
+            tstate, rstate, metrics = insert_update(
+                tstate, rstate, col, beta, u[t * k:(t + 1) * k] if u else None)
+        return tstate, astate, rstate, metrics
+
+    return superstep_interleaved if interleave else superstep
 
 
-def make_warm_superstep(env, model_cfg: ModelConfig,
-                        replay_cfg: ReplayConfig, chunk_len: int):
+def make_warm_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
+                        replay_cfg: ReplayConfig, chunk_len: int,
+                        compute_priorities: bool = False):
     """Warmup program: act + insert, NO learner updates (the learner's
-    generator is untouched), as `Trainer`'s warmup chunks."""
-    act = make_rollout_core(env, model_cfg, chunk_len)
+    generator is untouched), as `Trainer`'s warmup chunks. Under
+    `interleave_updates` the replay has chunk_len 1 while this program
+    still ACTS chunk_len steps per dispatch: it then inserts the chunk
+    column by column."""
+    act = make_rollout_core(env, model_cfg, chunk_len, compute_priorities,
+                            algo_cfg.gamma)
+    per_col = replay_cfg.chunk_len == 1 and chunk_len > 1
 
     def warm(model, astate, rstate, eps, draws=None):
         astate, chunk = act(model, astate, eps, (draws or {}).get("act"))
+        if per_col:
+            for t in range(chunk_len):
+                replay_insert(replay_cfg, rstate,
+                              {k: v[:, t:t + 1] for k, v in chunk.items()})
+            return astate, rstate
         return astate, replay_insert(replay_cfg, rstate, chunk)
 
     return warm
@@ -112,7 +169,8 @@ class FusedApexTrainer:
     The config is the `Trainer`'s ("env": {"type": "minatar_breakout" |
     "cartpole_device" | ..., "num_envs": lanes}); select it with
     {"train": {"trainer": "fused"}} from the CLI. Supports warmup, image
-    observations (uint8 replay rings), DQN/IQN/R2D2 updates, checkpoints
+    observations (uint8 replay rings), DQN/IQN/R2D2 updates, actor-side
+    initial priorities, interleaved updates, transcripts, checkpoints
     and resume."""
 
     def __init__(self, config: Dict[str, Any], result_dir: str,
@@ -120,7 +178,7 @@ class FusedApexTrainer:
                  logger: Optional[RunLogger] = None):
         if mesh is not None:
             raise not_ported("a device mesh (d > 1) for the fused trainer",
-                             "mesh, apex, pool")
+                             "distribution")
         self.device = resolve_device(device)
         self.config = config
         self.result_dir = result_dir
@@ -139,32 +197,57 @@ class FusedApexTrainer:
                                        spec.num_actions)
         self.algo_cfg = AlgoConfig(**config.get("algo", {}))
         self.loop_cfg = TrainLoopConfig(**config.get("train", {}))
+        self.supersteps = max(1, int(self.loop_cfg.supersteps_per_dispatch))
+        self.transcript = None
+        if self.loop_cfg.record_transcript:
+            self.algo_cfg = dataclasses.replace(self.algo_cfg,
+                                                debug_outputs=True)
+            self.transcript = Transcript()
+        if self.algo_cfg.debug_outputs:
+            if self.loop_cfg.warmup_env_steps > 0:
+                raise ValueError(
+                    "fused transcripts record post-warmup chunks only — "
+                    "set train.warmup_env_steps=0 for the exact-numerics "
+                    "harness (Trainer records warmup chunks too, so the "
+                    "transcripts would differ)")
+            if self.supersteps != 1:
+                raise ValueError(
+                    "debug_outputs/record_transcript on the fused "
+                    "path needs supersteps_per_dispatch=1 (the "
+                    "transcript records every chunk; an S-loop only "
+                    "surfaces the last)")
         r2d2 = self.algo_cfg.algo == "r2d2"
+        interleave = self.loop_cfg.interleave_updates
+        # interleave_updates inserts ONE column at a time, so the replay
+        # geometry validates against chunk_len=1: this is what frees
+        # chunk_len from the ring-safety bound
         self.replay_cfg = ReplayConfig(
             num_envs=E,
             horizon=r2d2_horizon(self.algo_cfg) if r2d2
             else self.algo_cfg.n_step,
-            chunk_len=self.loop_cfg.chunk_len,
+            chunk_len=1 if interleave else self.loop_cfg.chunk_len,
             **config.get("replay", {}))
         self.flatten = len(spec.obs_shape) == 1
+        prio = self.replay_cfg.use_inserted_priorities
         self.replay_state = replay_init(
-            self.replay_cfg, replay_fields(spec, self.model_cfg), self.device)
+            self.replay_cfg, replay_fields(spec, self.model_cfg, prio),
+            self.device)
         self.actor_state = init_device_actor_state(
             self.env, self.model_cfg, E, fold_in_str(seed, "actor"),
             self.device)
-        in_shape = ((int(np.prod(spec.obs_shape)),) if self.flatten
-                    else (1,) + tuple(spec.obs_shape))
         self.train_state = make_train_state(
-            self.model_cfg, self.algo_cfg, in_shape,
+            self.model_cfg, self.algo_cfg,
+            model_in_shape(spec, 1, self.model_cfg),
             fold_in_str(seed, "learner"), self.device)
-        self.supersteps = max(1, int(self.loop_cfg.supersteps_per_dispatch))
         L = self.loop_cfg.chunk_len
         self._super = make_superstep(
             self.env, self.model_cfg, self.algo_cfg, self.replay_cfg, L,
             self.loop_cfg.updates_per_chunk, frame_stack=1,
-            flatten=self.flatten)
+            flatten=self.flatten, compute_priorities=prio,
+            interleave=interleave)
         self._warm_super = make_warm_superstep(
-            self.env, self.model_cfg, self.replay_cfg, L)
+            self.env, self.model_cfg, self.algo_cfg, self.replay_cfg, L,
+            compute_priorities=prio)
         self.exploration = build(config.get(
             "exploration", {"type": "epsilon_greedy"}))
         self.logger = logger or RunLogger(result_dir, config)
@@ -212,6 +295,10 @@ class FusedApexTrainer:
                 eps[i * L:(i + 1) * L], beta, draws[i] if draws else None)
             self.env_steps += per_chunk
         self.updates_done += S * self.loop_cfg.updates_per_chunk
+        if self.transcript is not None:
+            metrics = dict(metrics)
+            actions = metrics.pop("debug_chunk_action")
+            self.transcript.record_chunk(self.env_steps, actions, metrics)
         self.last_metrics = metrics
         return metrics
 
@@ -296,5 +383,8 @@ class FusedApexTrainer:
                 next_ckpt = self.env_steps + cfg.checkpoint_interval
                 self.save_checkpoint()
         self.save_checkpoint()
+        if self.transcript is not None:
+            self.transcript.dump(os.path.join(self.result_dir,
+                                              "transcript.jsonl"))
         self.logger.close()
         return self

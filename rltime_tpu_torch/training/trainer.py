@@ -8,13 +8,16 @@ A host env is stepped by `acting/actor.py:Actor`; a device-resident env
 the two-dispatch path that `parallel/fused.py` is held against.
 `algo.algo` picks the FF DQN/IQN update (`training/learner.py`) or the
 R2D2 one (`training/r2d2.py`, whose replay also stores the actor's
-LSTM carry as `rnn_c`/`rnn_h`).
+LSTM carry as `rnn_c`/`rnn_h`). `train.record_transcript` records every
+chunk's actions, sampled leaves and |TD| digests (`utils/transcript.py`)
+and writes `transcript.jsonl` beside the checkpoints.
 Built from the same JSON config dict as the JAX trainer, plus an
 explicit `device` ("cuda" raises when no card is present).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -43,6 +46,7 @@ from rltime_tpu_torch.training.r2d2 import (
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
 from rltime_tpu_torch.utils.profiling import PhaseTimers
+from rltime_tpu_torch.utils.transcript import Transcript
 
 
 @dataclasses.dataclass
@@ -68,16 +72,11 @@ class TrainLoopConfig:
 
     def __post_init__(self):
         if self.trainer == "apex":
-            raise not_ported("train.trainer='apex'", "mesh, apex, pool")
+            raise not_ported("train.trainer='apex'", "distribution")
         if self.trainer not in ("default", "fused"):
             raise ValueError(f"unknown trainer {self.trainer!r}")
-        if self.interleave_updates:
-            raise not_ported("train.interleave_updates",
-                             "remaining options")
         if self.async_acting:
-            raise not_ported("train.async_acting", "mesh, apex, pool")
-        if self.record_transcript:
-            raise not_ported("train.record_transcript", "remaining options")
+            raise not_ported("train.async_acting", "distribution")
         if self.profile_dir or self.profile_port:
             raise not_ported("train.profile_dir/profile_port",
                              "the port benchmark")
@@ -91,10 +90,11 @@ def _mk_model_cfg(model: Dict[str, Any], num_actions: int) -> ModelConfig:
     return ModelConfig(num_actions=num_actions, **m)
 
 
-def replay_fields(spec, model_cfg: ModelConfig) -> Dict[str, Any]:
+def replay_fields(spec, model_cfg: ModelConfig,
+                  inserted_priorities: bool = False) -> Dict[str, Any]:
     """The replay ring's fields for an env spec and a model: name ->
     (per-step shape, dtype). A recurrent model also stores the actor's
-    LSTM carry."""
+    LSTM carry; `inserted_priorities` adds the actor's raw |TD|."""
     obs_dt = torch.uint8 if spec.obs_dtype == np.uint8 else torch.float32
     fields = {
         "obs": (spec.obs_shape, obs_dt),
@@ -107,7 +107,20 @@ def replay_fields(spec, model_cfg: ModelConfig) -> Dict[str, Any]:
         H = model_cfg.lstm_size
         fields["rnn_c"] = ((H,), torch.float32)
         fields["rnn_h"] = ((H,), torch.float32)
+    if inserted_priorities:
+        fields["priority"] = ((), torch.float32)
     return fields
+
+
+def model_in_shape(spec, frame_stack: int, model_cfg: ModelConfig):
+    """One sample's model input for an env's obs spec: the flattened
+    stack for vector obs, (F, ...) frames for images (device envs have
+    F = 1), frames last with `channels_last`."""
+    if len(spec.obs_shape) == 1:
+        return (int(np.prod(spec.obs_shape)) * frame_stack,)
+    if model_cfg.channels_last:
+        return tuple(spec.obs_shape) + (frame_stack,)
+    return (frame_stack,) + tuple(spec.obs_shape)
 
 
 class Trainer:
@@ -126,6 +139,11 @@ class Trainer:
                                        spec.num_actions)
         self.algo_cfg = AlgoConfig(**config.get("algo", {}))
         self.loop_cfg = TrainLoopConfig(**config.get("train", {}))
+        self.transcript = None
+        if self.loop_cfg.record_transcript:
+            self.algo_cfg = dataclasses.replace(self.algo_cfg,
+                                                debug_outputs=True)
+            self.transcript = Transcript()
         r2d2 = self.algo_cfg.algo == "r2d2"
         if self.model_cfg.recurrent and not r2d2:
             raise ValueError("a recurrent model (lstm_size > 0) trains with "
@@ -138,8 +156,9 @@ class Trainer:
             lookback=self.frame_stack - 1,
             **config.get("replay", {}))
 
+        prio = self.replay_cfg.use_inserted_priorities
         self.replay_state = replay_init(
-            self.replay_cfg, replay_fields(spec, self.model_cfg),
+            self.replay_cfg, replay_fields(spec, self.model_cfg, prio),
             self.device)
 
         exploration = build(config.get(
@@ -151,20 +170,19 @@ class Trainer:
             self.actor = DeviceActor(
                 self.env.inner, self.env.num_envs, self.model_cfg,
                 exploration, fold_in_str(seed, "actor"),
-                self.loop_cfg.chunk_len, self.device)
+                self.loop_cfg.chunk_len, self.device,
+                compute_priorities=prio, gamma=self.algo_cfg.gamma)
         else:
             self.actor = Actor(
                 self.env, self.model_cfg, self.frame_stack, exploration,
                 make_generator(seed, "actor", self.device),
-                self.loop_cfg.chunk_len, self.device)
+                self.loop_cfg.chunk_len, self.device,
+                compute_priorities=prio, gamma=self.algo_cfg.gamma)
         self.flatten = len(spec.obs_shape) == 1
 
-        if self.flatten:
-            in_shape = (int(np.prod(spec.obs_shape)) * self.frame_stack,)
-        else:
-            in_shape = (self.frame_stack,) + tuple(spec.obs_shape)
         self.train_state = make_train_state(
-            self.model_cfg, self.algo_cfg, in_shape,
+            self.model_cfg, self.algo_cfg,
+            model_in_shape(spec, self.frame_stack, self.model_cfg),
             fold_in_str(seed, "learner"), self.device)
         if r2d2:
             upd = make_r2d2_update_step(self.model_cfg, self.algo_cfg,
@@ -172,7 +190,8 @@ class Trainer:
                                         self.flatten)
         else:
             upd = make_update_step(self.algo_cfg, self.replay_cfg,
-                                   self.frame_stack, self.flatten)
+                                   self.frame_stack, self.flatten,
+                                   self.model_cfg.channels_last)
         self._insert_update = make_insert_and_update_step(
             self.replay_cfg, upd, self.loop_cfg.updates_per_chunk)
 
@@ -238,8 +257,12 @@ class Trainer:
         return a.per_beta_start + frac * (a.per_beta_end
                                           - a.per_beta_start)
 
-    def train_chunk(self):
-        """One acting chunk + its learner updates. Returns metrics."""
+    def train_chunk(self, draws=None):
+        """One acting chunk + its learner updates. Returns metrics.
+        `draws` is for tests only, as the fused `superstep(draws)` is:
+        the chunk's K update draws replayed from the JAX key chain (see
+        `learner.make_insert_and_update_step`). Training never passes it
+        and draws from the train state's generator."""
         with self.timers.phase("act"):
             chunk, act_info = self.actor.rollout(self.train_state.model)
         metrics = {}
@@ -248,12 +271,15 @@ class Trainer:
                 self.train_state, self.replay_state, metrics = \
                     self._insert_update(self.train_state,
                                         self.replay_state, chunk,
-                                        self._beta())
+                                        self._beta(), draws)
             self.updates_done += self.loop_cfg.updates_per_chunk
             self.last_metrics = metrics
         else:  # warmup: fill replay without updating
             with self.timers.phase("insert", sync=self.device):
                 replay_insert(self.replay_cfg, self.replay_state, chunk)
+        if self.transcript is not None:
+            self.transcript.record_chunk(self.actor.env_steps,
+                                         chunk["action"], metrics)
         return metrics, act_info
 
     def train(self):
@@ -269,6 +295,9 @@ class Trainer:
                 next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
                 self.save_checkpoint()
         self.save_checkpoint()
+        if self.transcript is not None:
+            self.transcript.dump(os.path.join(self.result_dir,
+                                              "transcript.jsonl"))
         self.logger.close()
         return self
 

@@ -30,3 +30,18 @@ def make_generator(seed: int, name: str,
     gen = torch.Generator(device=device)
     gen.manual_seed(fold_in_str(seed, name))
     return gen
+
+
+def derived_generator(generator: torch.Generator, name: str
+                      ) -> torch.Generator:
+    """A new generator on the same device, seeded from `generator`'s
+    CURRENT state and `name`, without drawing from it (what
+    `jax.random.fold_in(key, tag)` is to a key): the parent's stream is
+    the same whether or not anything derives from it. Reading the state
+    is host-side bookkeeping; it does not wait for the device."""
+    tag = hashlib.sha256(name.encode()).digest()[:4]
+    mixed = hashlib.sha256(
+        generator.get_state().numpy().tobytes() + tag).digest()
+    gen = torch.Generator(device=generator.device)
+    gen.manual_seed(int.from_bytes(mixed[:8], "little") & ((1 << 63) - 1))
+    return gen

@@ -9,6 +9,7 @@ the parity tests can feed both sides the same randomness.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rltime_tpu.envs import device as jdevice
@@ -17,6 +18,23 @@ from rltime_tpu.envs import minatar_games as jgames
 from rltime_tpu.envs import minatar_seaquest as jseaquest
 from rltime_tpu_torch.envs import device as tdevice
 from rltime_tpu_torch.envs import minatar as tminatar
+
+
+@pytest.fixture
+def one_intra_op_thread():
+    """One PyTorch intra-op thread for the test. A module asks for it
+    with `pytestmark = pytest.mark.usefixtures("one_intra_op_thread")`
+    after importing it.
+
+    The port's CPU tests run at tiny sizes, several files at once under
+    pytest-xdist. With PyTorch's default of one thread per core the
+    workers' OpenMP pools spin against each other: a trainer run of
+    0.6 s took 54 s, thirteen port files 315 s against 83 s."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 # name -> (JAX class, port class)
 ENVS = {
@@ -136,6 +154,19 @@ def update_draws(key, B, num_tau=0, num_tau_prime=0, num_tau_policy=0):
             taus_prime=jax.random.uniform(k2, (B, num_tau_prime)),
             taus_policy=jax.random.uniform(k3, (B, num_tau_policy))))
     return d
+
+
+def uniform_update_draws(key, B, span, E):
+    """One learner update's sampler draws under uniform replay, from the
+    key `update_step` receives (training/learner.py:374,
+    history/replay.py:230-232): column offsets in [0, span) with
+    span = max(hi - lo, 1) of the valid range, and env lanes in [0, E),
+    as the port's `u` pair."""
+    _, skey, _ = jax.random.split(key, 3)
+    ukey, ekey = jax.random.split(skey)
+    return dict(u=(
+        torch.from_numpy(np.array(jax.random.randint(ukey, (B,), 0, span))),
+        torch.from_numpy(np.array(jax.random.randint(ekey, (B,), 0, E)))))
 
 
 def np_tree(params):

@@ -70,7 +70,26 @@ Phases (any failure exits non-zero and prints no result line):
  11. the fused trainer with `train.interleave_updates` and actor-side
      priorities on `minatar_breakout_dqn`, and `minatar_breakout_iqn`
      with priorities on the sum tree: a warm dispatch of each under
-     set_sync_debug_mode("error"), then timed dispatches of the first.
+     set_sync_debug_mode("error"), then timed dispatches of the first;
+ 12. distribution, on a one-rank NCCL group: both kernels held bit-exact
+     against their plain versions at the shapes the config-#5 update
+     gives them (one rank's 32 x 4096 ring of 84x84 uint8: K2's stacks at
+     B=64, F=4, n=3; K1's 4-segment launch at B=64; these run right after
+     phase 2, where torch.profiler times them reliably), then config #5
+     (`apex_multihost_counting`, `train.trainer=apex`) through the same
+     entry point at full width (Nature CNN, dueling, bf16, 32 lanes x
+     4,096 columns of 84x84 uint8, batch 64, n=3, F=4) for 16 updates,
+     counted as phase 3 is (one union_gather and one window_gather
+     launch per update) and by the census of collectives (one gradient
+     all-reduce of the parameters per update, one metrics buffer and the
+     max_priority MAXes, nothing else); the same updates through the
+     identity mesh, bit-equal, and warm windows of both meshes in turns
+     (ABBA) with each one's device-busy time per chunk; a warm
+     `minatar_breakout_dqn` dispatch through the NCCL mesh under
+     set_sync_debug_mode("error"), bit-equal to the same dispatch without
+     a mesh; `pong_dqn_counting` with `train.async_acting` beside the
+     synchronous trainer; and `python -m rltime_tpu_torch.train_distributed`
+     on one rank in a subprocess.
 Phase 2 also times the NHWC layout change that follows the union gather
 and the sum tree beside the dense tree at config #2's size.
 The line before the last is the kernels' JSON record; the last line is
@@ -87,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -226,14 +246,15 @@ def phase_environment():
     return smi
 
 
-def phase_kernels(smi: str):
-    """Each kernel's entry points against their plain versions on the
-    card."""
+def kernel_checks(results: dict, g, smi: str):
+    """The kernel comparisons, for any phase: each holds a kernel entry
+    point bit-exact against its plain version on the card at one shape,
+    times both (and what the entry point stands beside), and files the
+    numbers under results[kernel][tag]. `g` (a CUDA generator) draws the
+    inputs."""
     import torch
     from rltime_tpu_torch.ops import gather
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    results = {name: {} for name in gather.KERNELS}
 
     def index_sets(E, T, B, W, runs, lead, cross=False):
         """`runs` fresh (env, col) sets. Each starts `lead` columns
@@ -479,6 +500,24 @@ def phase_kernels(smi: str):
 
     def rand_done(E, T, rate):
         return torch.rand((E, T), generator=g, device=dev) < rate
+
+    return types.SimpleNamespace(
+        compare=compare, compare_stacks=compare_stacks,
+        compare_multi=compare_multi, rand=rand, rand_done=rand_done, g=g)
+
+
+def phase_kernels(smi: str):
+    """Each kernel's entry points against their plain versions on the
+    card."""
+    import torch
+    from rltime_tpu_torch.ops import gather
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {name: {} for name in gather.KERNELS}
+    k = kernel_checks(results, g, smi)
+    compare, compare_stacks, compare_multi = (k.compare, k.compare_stacks,
+                                              k.compare_multi)
+    rand, rand_done = k.rand, k.rand_done
 
     E, T = 64, 4096                      # both configs' obs ring: 1.85 GB
     ring = rand((E, T, 84, 84), torch.uint8)
@@ -1550,6 +1589,303 @@ def phase_sum_tree_parity():
           f"and {B} sampled leaves bit-equal (dyadic priorities)", flush=True)
 
 
+# config #5 at full width (32 lanes x 4,096 columns of 84x84 uint8, batch
+# 64, K=2): a chunk is 32 x 32 = 1,024 env steps; chunks 5..12 (env steps
+# 5,120..12,288 after their rollout) run K=2 updates
+APEX_PATH = dict(preset="apex_multihost_counting", steps=12_288,
+                 warmup=5_120, updates=16, chunks=12)
+# the shapes the config-#5 update gives the two kernels (one rank)
+APEX_K2_TAG = "stacks B=64 F=4 n=3 84x84 u8 (32 x 4096 ring)"
+APEX_K1_TAG = "multi B=64 config-#5 update (4 segments, 32 x 4096 rings)"
+
+
+def _state_equal(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a.values(), b.values()))
+
+
+def _warm_chunks(trainer, chunks: int):
+    """`chunks` more chunks of a host trainer (apex or default), timed by
+    the host clock to a synchronise: (env-steps/s, act ms per chunk, ms
+    per update of the update phase)."""
+    import torch
+    lc = trainer.loop_cfg
+    steps = chunks * lc.chunk_len * trainer.env.num_envs
+    trainer.timers.pop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        trainer.train_chunk()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ph = trainer.timers.pop()
+    upd = ph.get("update", ph.get("insert+update", 0.0))
+    return (steps / wall, ph["act"] / chunks * 1e3,
+            upd / (chunks * lc.updates_per_chunk) * 1e3)
+
+
+def phase_apex_kernels(smi: str, kern: dict):
+    """Phase 12's kernel checks: both kernels at the shapes the config-#5
+    update launches them with, filed into `kern`. They run right after
+    phase 2, not in phase 12: there, late in the run, torch.profiler
+    returned empty traces for a lone 3 µs kernel (two runs on an H100:
+    every trace of 5 calls in one, half of the one-call traces in the
+    other),
+    and the times come from it."""
+    import torch
+    dev = torch.device("cuda", 0)
+    # both kernels at the shapes the apex update launches them with,
+    # on one rank's ring (32 lanes x 4,096 columns of 84x84 uint8): K2's
+    # stacks at B=64, F=4, n=3 (the counting env's done rate, one episode
+    # end in 27 steps, then one that cuts every slot), and K1's launch for
+    # the update's 4 segments (three n = 3 strips and the action)
+    k = kernel_checks(kern, torch.Generator(device=dev).manual_seed(5), smi)
+    E, T = 32, 4096
+    ring = k.rand((E, T, 84, 84), torch.uint8)
+    done = k.rand_done(E, T, 1 / 27)
+    k.compare_stacks(APEX_K2_TAG, ring, done, 64, 4, 3, every_cut=False)
+    k.compare_stacks("stacks B=64 F=4 n=3 84x84 u8 (32 x 4096 ring), done "
+                     "rate 0.25", ring, k.rand_done(E, T, 0.25), 64, 4, 3)
+    del ring
+    k.compare_multi(APEX_K1_TAG, [
+        (torch.randn((E, T), generator=k.g, device=dev), 0, 3), (done, 0, 3),
+        (k.rand((E, T), torch.bool), 0, 3),
+        (k.rand((E, T), torch.int32), 0, 1)], 64)
+    del done, k
+    torch.cuda.empty_cache()
+
+
+def phase_distribution(smi: str):
+    """Phase 12: the distribution layer on a one-rank NCCL group."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from rltime_tpu_torch import train
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel import census
+    from rltime_tpu_torch.parallel.apex import ApexTrainer
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    from rltime_tpu_torch.parallel.mesh import identity_mesh, make_mesh
+    from rltime_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    # bit-equality across runs needs deterministic cuDNN algorithms (the
+    # default picks by speed, and some reduce in a varying order)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/f",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh(dev, size=1)
+        check(mesh.distributed and mesh.backend == "nccl",
+              f"not a one-rank NCCL mesh: {mesh}")
+        # 1) config #5 through the CLI's entry point on the NCCL mesh
+        p = APEX_PATH
+        result_dir = ROOT / "results" / "chip_smoke_apex"
+        shutil.rmtree(result_dir, ignore_errors=True)
+        argv = [p["preset"], "--device", "cuda", "--result-dir",
+                str(result_dir), f"--train.warmup_env_steps={p['warmup']}",
+                f"--train.total_env_steps={p['steps']}"]
+        gather.reset_counts()
+        census.reset_counts()
+        t0 = time.perf_counter()
+        tr = train.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+        ents = census.entries()
+        phases = tr.timers.pop()
+        n = p["updates"]
+        check(isinstance(tr, ApexTrainer) and tr.mesh.backend == "nccl"
+              and tr.updates_done == n and tr.global_env_steps == p["steps"],
+              f"apex: {type(tr).__name__} on {tr.mesh}, {tr.updates_done} "
+              "updates")
+        check(launches == {"union_gather": n, "window_gather": n}
+              and not any(plain.values()),
+              f"apex: launches {launches} in {n} updates, plain {plain}")
+        rs = tr.replay_state
+        check(rs.storage["obs"].shape == (32, 4096, 84, 84)
+              and rs.t == p["steps"] // 32, f"apex ring {rs.storage['obs'].shape}"
+              f" t={rs.t}")
+        mc, ac = tr.model_cfg, tr.algo_cfg
+        check((mc.torso, mc.head, mc.compute_dtype, ac.batch_size, ac.n_step,
+               tr.frame_stack) == ("nature_cnn", "dueling", "bfloat16", 64, 3,
+                                   4), f"not config #5's shapes: {mc} {ac}")
+        for k in ("loss", "grad_norm", "td_abs", "q"):
+            v = tr.last_metrics[k].item()
+            check(math.isfinite(v), f"apex: last {k} = {v}")
+        n_params = sum(q.numel() for q in tr.train_state.model.parameters())
+        sites = {(e["op"], e["site"], e["group"], e["bytes"]): e["count"]
+                 for e in ents}
+        want = {("all_reduce", "grad", "device", 4 * n_params): n,
+                ("all_reduce", "metrics", "device", 20): n,
+                ("all_reduce", "max_priority", "device", 4): n + p["chunks"]}
+        check(sites == want, f"apex census {sites}, expected {want}:\n"
+              + census.summarize(ents))
+        print(f"{p['preset']} on a one-rank NCCL mesh: {p['steps']} env "
+              f"steps, {n} updates, launches {launches}; census: "
+              f"{n} gradient all-reduces of {4 * n_params} B, {n} metric "
+              f"buffers of 20 B, {n + p['chunks']} max_priority MAXes of 4 B, "
+              "nothing else; last loss "
+              f"{tr.last_metrics['loss'].item():.6g}", flush=True)
+        upd_s = phases["update"]
+        print(f"{p['preset']} rates: {p['steps'] / wall:.1f} env-steps/s over "
+              f"the {wall:.3f} s run (act {phases['act']:.3f} s, insert "
+              f"{phases['insert']:.3f} s, update {upd_s:.3f} s); "
+              f"{n / upd_s:.2f} updates/s over the update phase "
+              f"({upd_s / n * 1e3:.2f} ms/update)  [{smi}]", flush=True)
+
+        # 2) the same run through the identity mesh: the learner bit-equal
+        cfg = copy.deepcopy(tr.config)
+        again_dir = ROOT / "results" / "chip_smoke_apex_identity"
+        shutil.rmtree(again_dir, ignore_errors=True)
+        ref = ApexTrainer(cfg, str(again_dir), device=dev,
+                          mesh=identity_mesh(dev)).train()
+        check(ref.updates_done == n and _state_equal(
+            tr.train_state.model.state_dict(),
+            ref.train_state.model.state_dict())
+            and torch.equal(tr.replay_state.tree, ref.replay_state.tree),
+            "apex: the NCCL mesh and the identity mesh differ")
+        print(f"apex: the same {n} updates through the identity mesh: "
+              "learner parameters and priorities bit-equal", flush=True)
+        # warm windows of 4 chunks (8 updates), in turns: 6 pairs in
+        # ABBA order, so drift of the host favours neither mesh
+        warm = {"nccl": [], "identity": []}
+        order = (("nccl", tr), ("identity", ref))
+        for i in range(6):
+            for tag, t in (order if i % 2 == 0 else order[::-1]):
+                warm[tag].append(_warm_chunks(t, 4))
+        for tag, w in warm.items():
+            print(f"apex warm, {tag} mesh ({len(w)} windows of 4 chunks, "
+                  "ABBA): " + "; ".join(
+                      f"{r:.1f} env-steps/s, act {a:.2f} ms/chunk, "
+                      f"{u:.2f} ms/update" for r, a, u in w)
+                  + f"; medians {statistics.median(x[0] for x in w):.1f} "
+                  f"env-steps/s, act {statistics.median(x[1] for x in w):.2f}"
+                  f" ms/chunk, {statistics.median(x[2] for x in w):.2f} "
+                  f"ms/update  [{smi}]", flush=True)
+        # the device's side of one chunk (act, insert, 2 updates) on each
+        busy = {}
+        for tag, t in order + order[::-1]:
+            _, ms, per_name = device_profile(t.train_chunk, runs=2)
+            nccl_ms = sum(v for kname, v in per_name.items()
+                          if "nccl" in kname.lower())
+            busy.setdefault(tag, []).append((ms, nccl_ms))
+        print("apex device-busy ms per chunk (torch.profiler, 2 chunks, "
+              "twice each): " + "; ".join(
+                  f"{tag} " + ", ".join(f"{m:.3f} (NCCL kernels {c:.3f})"
+                                        for m, c in v)
+                  for tag, v in busy.items()) + f"  [{smi}]", flush=True)
+        del tr, ref
+        torch.cuda.empty_cache()
+
+        # 3) a warm fused dispatch through the NCCL mesh, no host sync,
+        # bit-equal to the same dispatch without a mesh
+        fcfg = apply_overrides(load_config(FUSED_PATH["preset"]), [
+            "train.supersteps_per_dispatch=1", "train.warmup_env_steps=8193",
+            "train.total_env_steps=1000000000",
+            "train.log_interval=1000000000"])
+        runs = []
+        for tag, m in (("nccl", mesh), ("identity", identity_mesh(dev))):
+            d = ROOT / "results" / f"chip_smoke_fused_{tag}"
+            shutil.rmtree(d, ignore_errors=True)
+            ft = FusedApexTrainer(fcfg, str(d), device=dev, mesh=m)
+            ft.superstep()                       # warm chunk
+            ft.superstep()                       # first trained superstep
+            torch.cuda.synchronize()
+            census.reset_counts()
+            if tag == "nccl":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                mm = ft.superstep()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            runs.append((ft, mm, census.entries()))
+        (a, ma, ents), (b, mb, ents_b) = runs
+        check(a.updates_done == b.updates_done == 128
+              and _state_equal(a.train_state.model.state_dict(),
+                               b.train_state.model.state_dict())
+              and torch.equal(a.replay_state.tree, b.replay_state.tree)
+              and all(torch.equal(ma[k], mb[k]) for k in ma),
+              "fused: the NCCL dispatch and the dispatch without a mesh "
+              "differ")
+        check(sum(e["count"] for e in ents if e["site"] == "grad") == 64
+              and not ents_b, f"fused census {ents} / {ents_b}")
+        print(f"fused on the NCCL mesh: one warm dispatch (64 updates, "
+              f"{sum(e['count'] for e in ents)} collectives) ran under "
+              "set_sync_debug_mode('error'), bit-equal to the dispatch "
+              "without a mesh", flush=True)
+        for ft, _, _ in runs:
+            ft.logger.close()
+        del runs, a, b
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+
+    # 4) config #2 with async acting beside the synchronous trainer:
+    # warm windows of 8 chunks after the warmup and 2 trained chunks
+    rates = {}
+    for tag, extra in (("sync", []), ("async", ["train.async_acting=true"])):
+        cfg = apply_overrides(load_config(DQN_PATH["preset"]), [
+            "train.warmup_env_steps=8192", "train.total_env_steps=1000000000",
+            "train.log_interval=1000000000", *extra])
+        d = ROOT / "results" / f"chip_smoke_pong_{tag}"
+        shutil.rmtree(d, ignore_errors=True)
+        tr = Trainer(cfg, str(d), device="cuda")
+        while tr.updates_done < 4:
+            tr.train_chunk()
+        if tr.pool is not None:
+            tr.pool.depth_sum = tr.pool.gets = 0
+        rates[tag] = _warm_chunks(tr, 8)
+        check(math.isfinite(tr.last_metrics["loss"].item()),
+              f"{tag}: loss {tr.last_metrics['loss'].item()}")
+        if tr.pool is not None:
+            pool = tr.pool
+            pool.close()
+            check(not pool.alive and pool.version >= 8,
+                  f"async pool alive after close, or {pool.version} "
+                  "publishes")
+        tr.logger.close()
+        del tr
+        torch.cuda.empty_cache()
+    print("pong_dqn_counting, 8 warm chunks: "
+          + "; ".join(f"{tag} {r:.1f} env-steps/s (act {a:.2f} ms/chunk, "
+                      f"{u:.2f} ms/update)" for tag, (r, a, u)
+                      in rates.items())
+          + f"; async queue depth {pool.mean_depth:.2f} of 2 on average "
+          f"over {pool.gets} chunks, {pool.version} publishes  [{smi}]",
+          flush=True)
+
+    # 5) the multi-rank CLI on one rank, in a process of its own
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    d = ROOT / "results" / "chip_smoke_train_distributed"
+    shutil.rmtree(d, ignore_errors=True)
+    out = subprocess.run(
+        [sys.executable, "-m", "rltime_tpu_torch.train_distributed",
+         APEX_PATH["preset"], "--coordinator", f"localhost:{port}",
+         "--num-processes", "1", "--process-id", "0", "--device", "cuda",
+         "--result-dir", str(d), "--train.warmup_env_steps=2048",
+         "--train.total_env_steps=4096"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    check(out.returncode == 0 and "done: 6 updates on each of 1 ranks"
+          in out.stdout, f"train_distributed: rc {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    print(f"train_distributed {APEX_PATH['preset']} on one NCCL rank (a "
+          "subprocess): 4,096 env steps, 6 updates, checkpoint written",
+          flush=True)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
 
 def main() -> int:
     if not (ROOT / "rltime_tpu_torch" / "__init__.py").is_file():
@@ -1561,6 +1897,7 @@ def main() -> int:
     smi = phase_environment()
     kern = phase_kernels(smi)
     phase_option_timings(smi)
+    phase_apex_kernels(smi, kern)
     trainer, dqn_launches = phase_dqn_path()
     phase_steady_state(trainer, smi, chunks=8, profiled=3)
     del trainer
@@ -1584,6 +1921,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cartpole()
     phase_fused_options(smi)
+    apex_launches = phase_distribution(smi)
 
     def entry(name, source, replaces, by_path, main_path, main_tag, raw_tag,
               beside):
@@ -1616,7 +1954,8 @@ def main() -> int:
                 R2D2_PATH["preset"]: r2d2_launches[name],
                 FUSED_PATH["preset"]: fused_launches[name],
                 DQN_OPTIONS_PATH["tag"]: option_launches[name],
-                DQN_LAMBDA_PATH["tag"]: lambda_launches[name]}
+                DQN_LAMBDA_PATH["tag"]: lambda_launches[name],
+                APEX_PATH["preset"]: apex_launches[name]}
 
     # a gather does no arithmetic: each is bound by the bytes it moves
     record = {"kernels": [

@@ -5,7 +5,8 @@ its module paths so each counterpart is easy to find. It imports torch
 and numpy only (never jax, flax, optax, orbax or rltime_tpu), because
 the GPU machine it targets has none of them.
 
-Ported so far (ROADMAP.md): everything one device can run.
+Ported so far (ROADMAP.md): everything of one device, and the
+distribution layer over `torch.distributed`.
   * the default host `Trainer` for the feed-forward DQN/IQN path and the
     R2D2 path: PER replay (dense two-level sampler or binary sum tree)
     or uniform replay, with the window gathers as hand-written
@@ -18,25 +19,32 @@ Ported so far (ROADMAP.md): everything one device can run.
     losses, R2D2 burn-in from the stored carry with n-step or lambda
     targets through value rescaling, Adam or centered RMSProp with
     optax's global-norm clip, the NHWC / space-to-depth Nature CNN,
-    actor-side initial priorities, transcripts, and checkpoints; host
-    envs `cartpole` (config #1) and `counting_env`;
+    actor-side initial priorities, async acting (`acting/pool.py`),
+    transcripts, and checkpoints; host envs `cartpole` (config #1) and
+    `counting_env`;
   * the fused on-device path (`train.trainer="fused"`, every
     `configs/minatar_*.json` preset): device-resident envs
     (`envs/device.py` CartPole, `envs/minatar*.py` Breakout, Asterix,
     Freeway, Space Invaders, Seaquest), the on-device rollout
-    (`acting/device_actor.py`) and `parallel/fused.py:FusedApexTrainer`
-    on one device, with no host sync inside a dispatch, chunked or
-    with `train.interleave_updates`;
-  * `python -m rltime_tpu_torch.eval <result_dir> [--best]`.
+    (`acting/device_actor.py`) and `parallel/fused.py:FusedApexTrainer`,
+    with no host sync inside a dispatch, chunked or with
+    `train.interleave_updates`;
+  * distribution (`parallel/mesh.py`: one rank per process and device,
+    NCCL on cards, gloo on the CPU): the Ape-X `ApexTrainer`
+    (`train.trainer="apex"`, config #5 as `apex_multihost_counting`) and
+    the fused trainer over d ranks, sharded replay, one gradient
+    all-reduce per update, per-rank checkpoint sidecars, and the count
+    of collectives (`parallel/census.py`);
+  * `python -m rltime_tpu_torch.eval <result_dir> [--best]` and
+    `python -m rltime_tpu_torch.train_distributed` (N ranks).
 
     python -m rltime_tpu_torch.train minatar_breakout_dqn   # on the card
     python -m rltime_tpu_torch.train minatar_breakout_dqn --device cpu \
         --env.num_envs=8 --algo.batch_size=8 --train.total_env_steps=3000 \
         --train.warmup_env_steps=1000 --train.updates_per_chunk=2
 
-Options not ported yet (the multi-device split: `train.trainer="apex"`,
-`train.async_acting`, a fused mesh; and `train.profile_dir`) raise
-`NotImplementedError` via `not_ported`.
+The one option not ported yet (`train.profile_dir/profile_port`: the
+port benchmark) raises `NotImplementedError` via `not_ported`.
 """
 
 __version__ = "0.1.0"

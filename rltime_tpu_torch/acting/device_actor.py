@@ -115,13 +115,16 @@ def act_draws(cfg: ModelConfig, num_envs: int, generator: torch.Generator,
 
 
 def eps_schedule(exploration, num_envs: int, env_steps: int, num_steps: int,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, lanes: slice = slice(None)
+                 ) -> torch.Tensor:
     """(num_steps, E) epsilons for the next `num_steps` lockstep act
     steps, computed on the host and sent down in ONE copy (pinned and
-    asynchronous on a card, so the dispatch does not wait for it)."""
-    eps = torch.from_numpy(np.stack([
+    asynchronous on a card, so the dispatch does not wait for it).
+    `num_envs` counts every lane of the schedule (all ranks' on a mesh);
+    `lanes` picks this rank's columns of it."""
+    eps = torch.from_numpy(np.ascontiguousarray(np.stack([
         exploration.epsilons(num_envs, env_steps + t * num_envs)
-        for t in range(num_steps)]))
+        for t in range(num_steps)])[:, lanes]))
     if device.type == "cuda":
         return eps.pin_memory().to(device, non_blocking=True)
     return eps

@@ -5,9 +5,11 @@
 
 `<config>` is a JSON path or a preset name under the repository's
 shared `configs/` (e.g. `pong_dqn_counting`, `minatar_breakout_dqn`).
-`train.trainer` picks the host `Trainer` (default) or the fused
-on-device `FusedApexTrainer` ("fused": every MinAtar preset). Dotted
-overrides compose onto the loaded config. `--device` defaults to `cuda` and raises when
+`train.trainer` picks the host `Trainer` (default), the fused
+on-device `FusedApexTrainer` ("fused": every MinAtar preset) or the
+Ape-X `ApexTrainer` ("apex": `apex_multihost_counting`), here on one
+rank; `python -m rltime_tpu_torch.train_distributed` runs the last two
+on several. Dotted overrides compose onto the loaded config. `--device` defaults to `cuda` and raises when
 no card is present; the CPU runs only when asked for.
 """
 from __future__ import annotations
@@ -45,10 +47,14 @@ def run(argv=None):
     print(f"result dir: {result_dir}")
     print(json.dumps(cfg, indent=2))
     # {"train": {"trainer": "fused"}} selects the on-device superstep
-    # (device envs); "apex" is refused by TrainLoopConfig
-    if cfg.get("train", {}).get("trainer", "default") == "fused":
+    # (device envs), "apex" the Ape-X actor/learner split
+    kind = cfg.get("train", {}).get("trainer", "default")
+    if kind == "fused":
         from rltime_tpu_torch.parallel.fused import FusedApexTrainer
         return FusedApexTrainer(cfg, result_dir, device=args.device).train()
+    if kind == "apex":
+        from rltime_tpu_torch.parallel.apex import ApexTrainer
+        return ApexTrainer(cfg, result_dir, device=args.device).train()
     from rltime_tpu_torch.training.trainer import Trainer
     return Trainer(cfg, result_dir, device=args.device).train()
 

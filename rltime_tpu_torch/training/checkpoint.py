@@ -4,9 +4,12 @@
 generator, update counter} plus host-side counters, under
 `<result_dir>/checkpoints/<env_step>/state.pt`, the same directory
 layout as the JAX version's orbax checkpoints. Replay contents are
-optionally included, and a trainer may add entries of its own (the
-fused trainer's actor state). The best-checkpoint rule (`maybe_record_best`,
-`best.json`) is the JAX version's, unchanged.
+optionally included. The best-checkpoint rule (`maybe_record_best`, `best.json`) and its
+bookkeeping of protected steps (`unmark_best_only`,
+`derive_protected_steps`) are the JAX version's, unchanged. The
+multi-rank trainers write per-rank sidecars under
+`<result_dir>/checkpoints_aux/<env_step>/` beside the lead's learner
+checkpoint; a reclaimed best step takes its sidecars with it.
 """
 from __future__ import annotations
 
@@ -28,12 +31,17 @@ def _step_dir(result_dir: str, step: int) -> str:
                                         str(step)))
 
 
+def replay_payload(replay_state: ReplayState) -> Dict[str, Any]:
+    """A replay (or one rank's shard) as `load_replay_state` reads it
+    back."""
+    return {"storage": replay_state.storage, "t": replay_state.t,
+            "tree": replay_state.tree,
+            "max_priority": replay_state.max_priority}
+
+
 def save(result_dir: str, step: int, train_state: TrainState,
          host_state: Dict[str, Any],
-         replay_state: Optional[ReplayState] = None,
-         extra: Optional[Dict[str, Any]] = None) -> str:
-    """`extra`: further top-level entries (tensors, numbers, nested
-    dicts and lists of them), e.g. the fused trainer's actor state."""
+         replay_state: Optional[ReplayState] = None) -> str:
     path = _step_dir(result_dir, step)
     os.makedirs(path, exist_ok=True)
     ckpt = {
@@ -45,11 +53,7 @@ def save(result_dir: str, step: int, train_state: TrainState,
         "host_state": dict(host_state),
     }
     if replay_state is not None:
-        ckpt["replay_state"] = {
-            "storage": replay_state.storage, "t": replay_state.t,
-            "tree": replay_state.tree,
-            "max_priority": replay_state.max_priority}
-    ckpt.update(extra or {})
+        ckpt["replay_state"] = replay_payload(replay_state)
     tmp = os.path.join(path, _FILE + ".tmp")
     torch.save(ckpt, tmp)
     os.replace(tmp, os.path.join(path, _FILE))
@@ -105,9 +109,12 @@ def record_best(result_dir: str, step: int, score: float,
     best may reclaim it."""
     d = os.path.join(result_dir, "checkpoints")
     os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "best.json"), "w") as f:
+    # written aside and renamed: a reader never sees a half-written file
+    tmp = os.path.join(d, "best.json.tmp")
+    with open(tmp, "w") as f:
         json.dump({"step": int(step), "score": float(score),
                    "best_only": bool(best_only)}, f)
+    os.replace(tmp, os.path.join(d, "best.json"))
 
 
 def best_step(result_dir: str) -> Optional[Dict[str, Any]]:
@@ -122,15 +129,23 @@ def best_step(result_dir: str) -> Optional[Dict[str, Any]]:
 def maybe_record_best(result_dir: str, best_score: float,
                       mean_return: float, n_episodes: int,
                       min_episodes: int, env_steps: int, save_fn,
-                      protected_steps=()) -> float:
+                      protected_steps=(), lead: bool = True) -> float:
     """Snapshot whenever the log-interval episode mean (over at least
     `min_episodes` episodes) makes a new high. Returns the updated best
-    score. The PREVIOUS best dir is deleted iff it was created solely by
-    best tracking and is not a protected (interval/final) step."""
+    score. The PREVIOUS best dir (and its sidecars under
+    `checkpoints_aux/`) is deleted iff it was created solely by best
+    tracking and is not a protected (interval/final) step.
+
+    Multi-rank: every rank calls this with IDENTICAL (pooled) stats; the
+    decision and `save_fn` (each rank writes its sidecar) run everywhere,
+    while best.json and the reclaim are the lead's (`lead=False` skips
+    them; only the lead reads best.json)."""
     if n_episodes < min_episodes or mean_return <= best_score:
         return best_score
-    prev = best_step(result_dir)
+    prev = best_step(result_dir) if lead else None
     save_fn()
+    if not lead:
+        return mean_return
     protected = set(int(s) for s in protected_steps)
     record_best(result_dir, env_steps, mean_return,
                 best_only=env_steps not in protected)
@@ -139,4 +154,37 @@ def maybe_record_best(result_dir: str, best_score: float,
             and int(prev["step"]) not in protected):
         shutil.rmtree(_step_dir(result_dir, int(prev["step"])),
                       ignore_errors=True)
+        shutil.rmtree(aux_dir(result_dir, int(prev["step"])),
+                      ignore_errors=True)
     return mean_return
+
+
+def aux_dir(result_dir: str, step: int) -> str:
+    """The per-rank sidecars of the checkpoint at `step`."""
+    return os.path.abspath(os.path.join(result_dir, "checkpoints_aux",
+                                        str(step)))
+
+
+def unmark_best_only(result_dir: str, step: int) -> None:
+    """An interval/final save at a step recorded as best_only makes it a
+    protected checkpoint: clear the flag, so that a new best after a
+    resume (whose protected set comes from `derive_protected_steps`)
+    cannot reclaim it."""
+    b = best_step(result_dir)
+    if (b is not None and int(b["step"]) == int(step)
+            and b.get("best_only")):
+        record_best(result_dir, int(b["step"]), float(b["score"]),
+                    best_only=False)
+
+
+def derive_protected_steps(result_dir: str) -> set:
+    """The interval/final checkpoint steps, rebuilt at resume: every
+    checkpoint dir except the one best.json marks best_only."""
+    ckdir = os.path.join(result_dir, "checkpoints")
+    if not os.path.isdir(ckdir):
+        return set()
+    b = best_step(result_dir)
+    bo = (int(b["step"]) if b is not None and b.get("best_only")
+          else None)
+    return {int(x) for x in os.listdir(ckdir)
+            if x.isdigit() and int(x) != bo}

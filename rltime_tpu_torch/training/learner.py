@@ -227,13 +227,21 @@ def _global_norm(tensors) -> torch.Tensor:
 
 
 def apply_gradients(cfg: AlgoConfig, state: TrainState,
-                    loss: torch.Tensor) -> torch.Tensor:
+                    loss: torch.Tensor, mesh=None) -> torch.Tensor:
     """Backward of `loss` through the online net, optax-rule global-norm
     clip, the optimizer's step (Adam or centered RMSProp), the update
-    count and the periodic target sync, in place. Returns the pre-clip gradient norm (as the JAX version
-    reports it)."""
+    count and the periodic target sync, in place. Returns the pre-clip
+    gradient norm (as the JAX version reports it).
+
+    `mesh` (`parallel/mesh.py`): the gradients are averaged over its
+    ranks in one all-reduce BEFORE the norm and the clip, where JAX's
+    `pmean` sits ahead of optax's clip. (JAX averages the loss there
+    too; the port's loss is only reported, and the sharded update
+    averages it with the other metrics.)"""
     params = list(state.model.parameters())
     grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        grads = mesh.mean_grads(grads)
     g_norm = _global_norm(grads)
     if cfg.grad_clip > 0:
         # optax.clip_by_global_norm: scale only when g_norm >= max
@@ -259,9 +267,10 @@ def apply_gradients(cfg: AlgoConfig, state: TrainState,
 
 def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
                      frame_stack: int, flatten: bool,
-                     channels_last: bool = False):
+                     channels_last: bool = False, mesh=None):
     """Build the learner update. `channels_last`: the model takes
-    (B, H, W, F) stacks (`model.channels_last`).
+    (B, H, W, F) stacks (`model.channels_last`). `mesh`: average the
+    gradients over its ranks (`apply_gradients`).
 
     Returns fn(train_state, replay_state, beta, u=None, taus=None) ->
     (train_state, replay_state, metrics). `u` injects the sampler's
@@ -358,7 +367,7 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
             loss, td_abs, q_metric = iqn_loss(state, batch, weight, taus)
         else:
             loss, td_abs, q_metric = dqn_loss(state, batch, weight)
-        g_norm = apply_gradients(cfg, state, loss)
+        g_norm = apply_gradients(cfg, state, loss, mesh)
 
         td_abs = td_abs.detach()
         replay_update_priorities(replay_cfg, rstate, idx["leaf"], td_abs,
@@ -377,14 +386,18 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
 
 
 def make_insert_and_update_step(replay_cfg: ReplayConfig, update_step,
-                                num_updates: int):
+                                num_updates: int, insert=None):
     """{chunk insert + K update steps}; returns the LAST step's metrics.
 
     `draws`, a list of K keyword dicts (`u`, `taus`), injects each
-    update's random draws (tests)."""
+    update's random draws (tests). `insert(state, chunk)` replaces the
+    plain `replay_insert` (the sharded insert of `parallel/mesh.py`)."""
+    if insert is None:
+        def insert(rstate, chunk):
+            return replay_insert(replay_cfg, rstate, chunk)
 
     def fused(state, rstate, chunk, beta, draws=None):
-        rstate = replay_insert(replay_cfg, rstate, chunk)
+        rstate = insert(rstate, chunk)
         metrics = {}
         for k in range(num_updates):
             state, rstate, metrics = update_step(
@@ -392,4 +405,3 @@ def make_insert_and_update_step(replay_cfg: ReplayConfig, update_step,
         return state, rstate, metrics
 
     return fused
-

@@ -50,8 +50,9 @@ def _take(q: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                           replay_cfg: ReplayConfig, frame_stack: int,
-                          flatten: bool):
-    """Build the R2D2 update (same signature as the FF one).
+                          flatten: bool, mesh=None):
+    """Build the R2D2 update (same signature as the FF one; `mesh`
+    averages the gradients over its ranks, `learner.apply_gradients`).
 
     Returns fn(train_state, replay_state, beta, u=None) ->
     (train_state, replay_state, metrics). `u` (B,) injects the PER
@@ -153,7 +154,7 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                           * idx["weight"])
         prio = losses.sequence_priority(torch.abs(td.detach()), mask,
                                         cfg.eta)
-        g_norm = apply_gradients(cfg, state, loss)
+        g_norm = apply_gradients(cfg, state, loss, mesh)
 
         replay_update_priorities(replay_cfg, rstate, idx["leaf"], prio)
         metrics = dict(loss=loss.detach(), q=torch.mean(q_sa.detach()),

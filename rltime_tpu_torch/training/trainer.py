@@ -8,7 +8,10 @@ A host env is stepped by `acting/actor.py:Actor`; a device-resident env
 the two-dispatch path that `parallel/fused.py` is held against.
 `algo.algo` picks the FF DQN/IQN update (`training/learner.py`) or the
 R2D2 one (`training/r2d2.py`, whose replay also stores the actor's
-LSTM carry as `rnn_c`/`rnn_h`). `train.record_transcript` records every
+LSTM carry as `rnn_c`/`rnn_h`). `train.async_acting` moves the rollout
+to a background thread (`acting/pool.py`) that acts with a copy of the
+weights published every `train.publish_interval` chunks.
+`train.record_transcript` records every
 chunk's actions, sampled leaves and |TD| digests (`utils/transcript.py`)
 and writes `transcript.jsonl` beside the checkpoints.
 Built from the same JSON config dict as the JAX trainer, plus an
@@ -29,6 +32,7 @@ import rltime_tpu_torch.exploration  # noqa: F401  (registers exploration types)
 from rltime_tpu_torch import not_ported
 from rltime_tpu_torch.acting.actor import Actor
 from rltime_tpu_torch.acting.device_actor import DeviceActor
+from rltime_tpu_torch.acting.pool import AsyncActorPool
 from rltime_tpu_torch.config.config import build
 from rltime_tpu_torch.device import resolve_device
 from rltime_tpu_torch.history.replay import (
@@ -71,12 +75,8 @@ class TrainLoopConfig:
     interleave_updates: bool = False
 
     def __post_init__(self):
-        if self.trainer == "apex":
-            raise not_ported("train.trainer='apex'", "distribution")
-        if self.trainer not in ("default", "fused"):
+        if self.trainer not in ("default", "fused", "apex"):
             raise ValueError(f"unknown trainer {self.trainer!r}")
-        if self.async_acting:
-            raise not_ported("train.async_acting", "distribution")
         if self.profile_dir or self.profile_port:
             raise not_ported("train.profile_dir/profile_port",
                              "the port benchmark")
@@ -195,6 +195,11 @@ class Trainer:
         self._insert_update = make_insert_and_update_step(
             self.replay_cfg, upd, self.loop_cfg.updates_per_chunk)
 
+        self.pool = None
+        if self.loop_cfg.async_acting:
+            self.pool = AsyncActorPool(self.actor, self.train_state.model)
+        self._chunks_trained = 0
+
         self.timers = PhaseTimers()
         self.logger = logger or RunLogger(result_dir, config)
         self.last_metrics: Dict[str, torch.Tensor] = {}
@@ -264,7 +269,10 @@ class Trainer:
         `learner.make_insert_and_update_step`). Training never passes it
         and draws from the train state's generator."""
         with self.timers.phase("act"):
-            chunk, act_info = self.actor.rollout(self.train_state.model)
+            if self.pool is not None:
+                chunk, act_info = self.pool.get_chunk()
+            else:
+                chunk, act_info = self.actor.rollout(self.train_state.model)
         metrics = {}
         if self.actor.env_steps >= self.loop_cfg.warmup_env_steps:
             with self.timers.phase("insert+update", sync=self.device):
@@ -274,6 +282,10 @@ class Trainer:
                                         self._beta(), draws)
             self.updates_done += self.loop_cfg.updates_per_chunk
             self.last_metrics = metrics
+            self._chunks_trained += 1
+            if (self.pool is not None and self._chunks_trained
+                    % self.loop_cfg.publish_interval == 0):
+                self.pool.set_params(self.train_state.model)
         else:  # warmup: fill replay without updating
             with self.timers.phase("insert", sync=self.device):
                 replay_insert(self.replay_cfg, self.replay_state, chunk)
@@ -294,6 +306,8 @@ class Trainer:
             if self.actor.env_steps >= next_ckpt:
                 next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
                 self.save_checkpoint()
+        if self.pool is not None:
+            self.pool.close()
         self.save_checkpoint()
         if self.transcript is not None:
             self.transcript.dump(os.path.join(self.result_dir,

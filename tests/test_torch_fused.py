@@ -33,6 +33,7 @@ from rltime_tpu_torch.acting.device_actor import (
 )
 from rltime_tpu_torch.models import bridge
 from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+from rltime_tpu_torch.parallel.mesh import make_mesh as make_torch_mesh
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
 from rltime_tpu_torch.training.trainer import Trainer
 from rltime_tpu_torch.utils.prng import fold_in_str
@@ -305,9 +306,12 @@ def test_presets_found():
 
 
 def test_fused_refuses_what_it_cannot_run(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FusedApexTrainer(_cfg(), str(tmp_path / "m"), device="cpu",
-                         mesh=object())
+    # a mesh of one rank runs; d > 1 without a process group raises
+    one = FusedApexTrainer(_cfg(), str(tmp_path / "m"), device="cpu",
+                           mesh=make_torch_mesh("cpu", size=1))
+    assert one.mesh.size == 1 and one.superstep() == {}
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_torch_mesh("cpu", size=2)
     host_env = _cfg()
     host_env["env"] = {"type": "counting_env", "num_envs": 2}
     with pytest.raises(ValueError, match="device-resident"):

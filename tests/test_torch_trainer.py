@@ -18,8 +18,10 @@ import torch
 from rltime_tpu.training.trainer import Trainer as JTrainer
 from rltime_tpu_torch import train as ttrain
 from rltime_tpu_torch.ops import gather
+from rltime_tpu_torch.parallel.apex import ApexTrainer
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
 from rltime_tpu_torch.training.trainer import Trainer
+from torch_port_draws import one_intra_op_thread  # noqa: F401
 
 
 def _img_cfg():
@@ -162,8 +164,23 @@ def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
     ("train", "profile_dir", "x"), ("train", "profile_port", 9999),
     ("train", "trainer", "apex"), ("train", "async_acting", True),
 ])
+@pytest.mark.usefixtures("one_intra_op_thread")
 def test_unported_options_raise(tmp_path, section, key, value):
+    """The profiler options still raise; `train.trainer="apex"` and
+    `train.async_acting` run since the distribution slice."""
     cfg = _img_cfg()
     cfg[section][key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(cfg, str(tmp_path / "u"), device="cpu")
+    cfg["train"]["total_env_steps"] = 176
+    if key.startswith("profile"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Trainer(cfg, str(tmp_path / "u"), device="cpu")
+        return
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    t = ttrain.run([str(path), "--device", "cpu", "--result-dir",
+                    str(tmp_path / "u")])
+    assert t.updates_done > 0
+    if key == "trainer":
+        assert isinstance(t, ApexTrainer) and t.mesh.size == 1
+    else:
+        assert t.pool is not None and not t.pool.alive

@@ -89,9 +89,24 @@ Phases (any failure exits non-zero and prints no result line):
      set_sync_debug_mode("error"), bit-equal to the same dispatch without
      a mesh; `pong_dqn_counting` with `train.async_acting` beside the
      synchronous trainer; and `python -m rltime_tpu_torch.train_distributed`
-     on one rank in a subprocess.
+     on one rank in a subprocess;
+ 13. (run right after phase 4) the host Atari engine: the C++ lane
+     pool's backend (synthetic where the library was built without ALE
+     headers) and its own rate on 64 lanes, then configs #2, #4 and #5
+     as written over `--env.type=atari_native` through the same entry
+     point at full width, counted as phase 3 is: `pong_dqn` for 18
+     updates (one union_gather and one window_gather launch per update,
+     the true game scores in scalars.jsonl, the warm windows of phase 3,
+     then 3 warm chunks under `utils/profiling.trace`, read back for the
+     per-phase split and the device-busy share), `atari_r2d2` for 4
+     updates (one window_gather each) and `apex_multihost` with
+     `train.trainer=apex` for 8 updates (one of each kernel per update);
+     then `rltime_tpu_torch.dryrun.entry()` on the card against the CPU
+     and `dryrun_multichip(1)` on a one-rank NCCL group.
 Phase 2 also times the NHWC layout change that follows the union gather
-and the sum tree beside the dense tree at config #2's size.
+and the sum tree beside the dense tree at config #2's size, and holds
+the fused frame-stack gather at F + n = 35, 33 and 65 rows (several
+done-flag ballots per window).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -101,6 +116,7 @@ import copy
 import itertools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -145,6 +161,24 @@ FUSED_OTHERS = (
     dict(preset="minatar_breakout_r2d2", steps=69_632, updates=64, k1=1),
     dict(preset="minatar_seaquest_dqn", steps=49_152, updates=256, k1=1),
 )
+# phase 13, the host Atari engine: configs #2, #4 and #5 as written on the
+# C++ lane pool's `atari_native` lanes (synthetic where the library was
+# built without ALE headers). Config #2 logs every 8,192 steps so that the
+# games' true scores reach scalars.jsonl; config #4 (64 x 64-step chunks,
+# warmup 16,384) runs chunks 4..7 with one update each; config #5 (32 x
+# 32-step chunks, K=2, warmup 5,120) chunks 5..8
+NATIVE_DQN_PATH = dict(
+    preset="pong_dqn", tag="pong_dqn+atari_native", steps=24_576,
+    warmup=8_192, updates=18,
+    overrides=["--env.type=atari_native", "--train.log_interval=8192"])
+NATIVE_R2D2_PATH = dict(
+    preset="atari_r2d2", tag="atari_r2d2+atari_native", steps=28_672,
+    warmup=16_384, updates=4, overrides=["--env.type=atari_native"])
+NATIVE_APEX_PATH = dict(
+    preset="apex_multihost", tag="apex_multihost+atari_native", steps=8_192,
+    warmup=5_120, updates=8,
+    overrides=["--env.type=atari_native", "--train.trainer=apex",
+               "--train.log_interval=4096"])
 # the shapes whose numbers head the kernels' record: what the config-#2
 # update asks of K2 and what the config-#4 update asks of K1
 K2_MAIN_TAG = "stacks B=256 F=4 n=3 84x84 u8"
@@ -539,6 +573,11 @@ def phase_kernels(smi: str):
                    dense, 256, 4, 3)
     compare_stacks("stacks B=1024 F=4 n=3 84x84 u8, done rate 0.25", ring,
                    dense, 1024, 4, 3)
+    # windows of F + n > 32 rows: the done flags take one ballot per 32
+    # (at this done rate an old slot of a long stack is all but never kept)
+    for F, n in ((30, 5), (4, 29), (2, 63)):
+        compare_stacks(f"stacks B=256 F={F} n={n} 84x84 u8, done rate 0.25",
+                       ring, dense, 256, F, n, every_cut=False)
     # K1's multi-field launch at the config-#4 update's segment set:
     # frames from col - 3, dones from col - 3, three 125-row strips and
     # the stored LSTM carry (two (64, 4096, 512) f32 rings, 0.54 GB each)
@@ -783,6 +822,18 @@ def phase_option_timings(smi: str):
           f"time); same leaves on dyadic priorities  [{smi}]", flush=True)
 
 
+def _run_phases(trainer, result_dir: Path) -> dict:
+    """Seconds per phase over a whole run: what the trainer's timers hold
+    since its last log, plus each logged interval's time/<phase>_s."""
+    phases = trainer.timers.pop()
+    log = result_dir / "scalars.jsonl"
+    for line in (log.read_text().splitlines() if log.is_file() else ()):
+        for k, v in json.loads(line).items():
+            if k.startswith("time/"):
+                phases[k[5:-2]] = phases.get(k[5:-2], 0.0) + v
+    return phases
+
+
 def run_path(path: dict):
     """Drive one config through the CLI's entry point on the card with
     the launch counters zeroed just before and read just after; check
@@ -805,7 +856,7 @@ def run_path(path: dict):
     torch.cuda.synchronize()
     launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    phases = trainer.timers.pop()     # whole run: no log interval hit
+    phases = _run_phases(trainer, result_dir)
     loop_s = sum(phases.values())
 
     check(trainer.device.type == "cuda", f"{tag}: trainer not on cuda")
@@ -1887,6 +1938,187 @@ def phase_distribution(smi: str):
     return launches
 
 
+def _trace_split(trace_dir: Path, chunks: int):
+    """Read one torch.profiler trace of `chunks` trainer chunks: ms per
+    chunk of each `phase/<name>` range, device-busy ms per chunk (union
+    of kernels, copies and sets) and the traced wall ms per chunk."""
+    files = sorted(trace_dir.glob("*.json"))
+    check(len(files) == 1, f"trace: {len(files)} files in {trace_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    phases: dict = {}
+    spans, lo, hi = [], float("inf"), float("-inf")
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        a, b = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        if e.get("cat") == "user_annotation" and e["name"].startswith(
+                "phase/"):
+            phases[e["name"][6:]] = phases.get(e["name"][6:], 0.0) + b - a
+            lo, hi = min(lo, a), max(hi, b)
+        elif e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((a, b))
+    check(bool(spans) and "act" in phases,
+          f"trace: {len(spans)} device events, phase ranges {sorted(phases)}")
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return ({k: v / 1e3 / chunks for k, v in phases.items()},
+            busy / 1e3 / chunks, (hi - lo) / 1e3 / chunks, len(events))
+
+
+def phase_atari_native(smi: str):
+    """Phase 13: the host env engine under configs #2, #4 and #5, the
+    torch.profiler trace, and the dryrun entry points."""
+    import numpy as np
+    import torch
+    from rltime_tpu_torch import dryrun, train
+    from rltime_tpu_torch.envs.native import bindings
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel.apex import ApexTrainer
+    from rltime_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    backend = bindings.atari_backend()
+    print(f"atari_native backend: {backend}", flush=True)
+    check(backend == "synthetic", "this machine has no ALE headers, yet the "
+          f"native library reports {backend!r}")
+
+    # the engine alone: 64 lanes, random actions, no policy
+    rng = np.random.default_rng(0)
+    for threads in (0, 1):
+        env = bindings.NativeAtariVecEnv(64, rom="pong", seed=0,
+                                         num_threads=threads)
+        env.reset()
+        steps = 400 if threads == 0 else 100
+        acts = rng.integers(0, env.spec.num_actions, (steps + 20, 64))
+        for a in acts[:20]:
+            env.step(a)
+        t0 = time.perf_counter()
+        for a in acts[20:]:
+            env.step(a)
+        rate = steps * 64 / (time.perf_counter() - t0)
+        used = threads or max(1, min(os.cpu_count() or 1, 64 // 8))
+        print(f"atari_native engine alone: 64 lanes on {used} lane threads, "
+              f"{rate:.1f} env-steps/s over {steps} steps ({len(env.pop_completed_scores())}"
+              f" games ended; host of {os.cpu_count()} cores)  [{smi}]",
+              flush=True)
+        env.close()
+
+    # config #2 over the native lanes, counted as phase 3 is
+    p = NATIVE_DQN_PATH
+    trainer, launches = run_path(p)
+    n = p["updates"]
+    check(launches == {"union_gather": n, "window_gather": n},
+          f"{p['tag']}: launches {launches} in {n} updates, expected one "
+          "union_gather and one window_gather per update")
+    check(type(trainer.env).__name__ == "NativeAtariVecEnv"
+          and trainer.env.num_envs == 64, f"{p['tag']}: env {trainer.env}")
+    lines = [json.loads(x) for x in (
+        ROOT / "results" / f"chip_smoke_{p['tag']}" / "scalars.jsonl"
+    ).read_text().splitlines()]
+    scores = [x["episode_score_mean"] for x in lines
+              if "episode_score_mean" in x]
+    check(bool(scores), f"{p['tag']}: no episode_score_mean in {len(lines)} "
+          "log lines")
+    print(f"{p['tag']}: episode_score_mean {scores} (true game scores) "
+          f"beside episode_return_mean "
+          f"{[x.get('episode_return_mean') for x in lines]} (per-life, "
+          "clipped)", flush=True)
+    phase_steady_state(trainer, smi, chunks=8, profiled=3)
+    # the same warm chunks through utils/profiling.trace: a non-empty trace
+    trace_dir = ROOT / "results" / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.trace(str(trace_dir)):
+        for _ in range(3):
+            trainer.train_chunk()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    trainer.timers.pop()
+    split, busy, traced, n_events = _trace_split(trace_dir, 3)
+    print(f"{p['tag']} trace (utils/profiling.trace, 3 warm chunks, "
+          f"{n_events} events): per chunk "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split.items()))
+          + f"; device busy {busy:.3f} ms of {traced:.2f} ms traced "
+          f"({busy / traced:.1%}); {wall:.2f} ms per traced chunk on the "
+          f"host clock  [{smi}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    by_path = {p["tag"]: launches}
+    # config #4 over the native lanes: one window_gather per update
+    trainer, launches = run_path(NATIVE_R2D2_PATH)
+    by_path[NATIVE_R2D2_PATH["tag"]] = launches
+    n = NATIVE_R2D2_PATH["updates"]
+    check(launches == {"union_gather": 0, "window_gather": n},
+          f"{NATIVE_R2D2_PATH['tag']}: launches {launches} in {n} updates")
+    check(trainer.model_cfg.lstm_size == 512
+          and trainer.replay_state.storage["rnn_c"].shape == (64, 4096, 512),
+          f"{NATIVE_R2D2_PATH['tag']}: not config #4's model or carry ring")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # config #5 over the native lanes on one rank (no process group)
+    p = NATIVE_APEX_PATH
+    result_dir = ROOT / "results" / f"chip_smoke_{p['tag']}"
+    shutil.rmtree(result_dir, ignore_errors=True)
+    gather.reset_counts()
+    t0 = time.perf_counter()
+    tr = train.run([p["preset"], "--device", "cuda", "--result-dir",
+                    str(result_dir), f"--train.warmup_env_steps={p['warmup']}",
+                    f"--train.total_env_steps={p['steps']}", *p["overrides"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+    n = p["updates"]
+    check(isinstance(tr, ApexTrainer) and tr.updates_done == n
+          and tr.global_env_steps == p["steps"]
+          and type(tr.env).__name__ == "NativeAtariVecEnv",
+          f"{p['tag']}: {type(tr).__name__}, {tr.updates_done} updates")
+    check(launches == {"union_gather": n, "window_gather": n}
+          and not any(plain.values()),
+          f"{p['tag']}: launches {launches} in {n} updates, plain {plain}")
+    check(tr.replay_state.storage["obs"].shape == (32, 4096, 84, 84)
+          and tr.algo_cfg.batch_size == 64, f"{p['tag']}: not config #5")
+    for k in ("loss", "grad_norm", "td_abs", "q"):
+        v = tr.last_metrics[k].item()
+        check(math.isfinite(v), f"{p['tag']}: last {k} = {v}")
+    ph = _run_phases(tr, result_dir)
+    print(f"{p['tag']}: {p['steps']} env steps, {n} updates, launches "
+          f"{launches}, plain calls {plain}; {p['steps'] / wall:.1f} "
+          f"env-steps/s over the {wall:.3f} s run (act {ph['act']:.3f} s, "
+          f"update {ph['update']:.3f} s)  [{smi}]", flush=True)
+    by_path[p["tag"]] = launches
+    del tr
+    torch.cuda.empty_cache()
+
+    # the dryrun entry points: entry() on the card against the CPU, then
+    # every training leg on a one-rank NCCL group
+    fn, (params, obs) = dryrun.entry()
+    cfn, (cparams, _) = dryrun.entry("cpu")
+    check(all(torch.equal(params[k].cpu(), cparams[k]) for k in params),
+          "entry(): the card's and the CPU's initial parameters differ")
+    frames = torch.randint(0, 256, tuple(obs.shape), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    q = fn(params, frames.to(obs.device))
+    q_cpu = cfn(cparams, frames)
+    err = (q.cpu() - q_cpu).abs().max().item()
+    check(q.shape == (128, 6) and bool(torch.isfinite(q).all())
+          and err <= 1e-2, f"entry(): card vs CPU max abs err {err} (bf16 "
+          "tolerance 1e-2)")
+    ev = median_ms(lambda: fn(params, obs), runs=20)
+    print(f"entry(): Nature-CNN dueling bf16 forward, B=128: card vs CPU max "
+          f"abs err {err:.3g} (tolerance 1e-2, |q| <= "
+          f"{q_cpu.abs().max().item():.3g}); {ev:.4f} ms per call by CUDA "
+          f"events  [{smi}]", flush=True)
+    line = dryrun.dryrun_multichip(1)
+    check(line.startswith("dryrun_multichip(1) OK:")
+          and "'backend': 'nccl'" in line, f"dryrun: {line}")
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
+
+
 def main() -> int:
     if not (ROOT / "rltime_tpu_torch" / "__init__.py").is_file():
         fail(f"no rltime_tpu_torch package beside {Path(__file__).name}")
@@ -1906,6 +2138,7 @@ def main() -> int:
     phase_steady_state(trainer, smi, chunks=8, profiled=3)
     del trainer
     torch.cuda.empty_cache()
+    native_launches = phase_atari_native(smi)
     fused_launches = phase_fused_path(smi)
     phase_fused_bench_shape(smi)
     phase_fused_others()
@@ -1955,13 +2188,14 @@ def main() -> int:
                 FUSED_PATH["preset"]: fused_launches[name],
                 DQN_OPTIONS_PATH["tag"]: option_launches[name],
                 DQN_LAMBDA_PATH["tag"]: lambda_launches[name],
-                APEX_PATH["preset"]: apex_launches[name]}
+                APEX_PATH["preset"]: apex_launches[name],
+                **{tag: n[name] for tag, n in native_launches.items()}}
 
     # a gather does no arithmetic: each is bound by the bytes it moves
     record = {"kernels": [
         entry("union_gather", "rltime_tpu_torch/csrc/union_gather.cu",
               "rltime_tpu/ops/pallas_gather.py:152",
-              by_path("union_gather"), DQN_PATH["preset"], K2_MAIN_TAG,
+              by_path("union_gather"), NATIVE_DQN_PATH["tag"], K2_MAIN_TAG,
               K2_RAW_TAG, "composition_ms"),
         entry("window_gather", "rltime_tpu_torch/csrc/window_gather.cu",
               "rltime_tpu/ops/pallas_gather.py:50",

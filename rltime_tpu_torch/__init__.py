@@ -20,8 +20,12 @@ distribution layer over `torch.distributed`.
     targets through value rescaling, Adam or centered RMSProp with
     optax's global-norm clip, the NHWC / space-to-depth Nature CNN,
     actor-side initial priorities, async acting (`acting/pool.py`),
-    transcripts, and checkpoints; host envs `cartpole` (config #1) and
-    `counting_env`;
+    transcripts, and checkpoints; host envs `cartpole` (config #1),
+    `counting_env`, `gym`, `atari` (the DeepMind stack over `ale_py`)
+    and the C++ lane pool's `cartpole_native` and `atari_native`
+    (`envs/native/`), with the true game scores in the log;
+    `train.profile_dir` and `train.profile_port` (torch.profiler traces,
+    on-demand captures);
   * the fused on-device path (`train.trainer="fused"`, every
     `configs/minatar_*.json` preset): device-resident envs
     (`envs/device.py` CartPole, `envs/minatar*.py` Breakout, Asterix,
@@ -35,25 +39,17 @@ distribution layer over `torch.distributed`.
     the fused trainer over d ranks, sharded replay, one gradient
     all-reduce per update, per-rank checkpoint sidecars, and the count
     of collectives (`parallel/census.py`);
-  * `python -m rltime_tpu_torch.eval <result_dir> [--best]` and
-    `python -m rltime_tpu_torch.train_distributed` (N ranks).
+  * `python -m rltime_tpu_torch.eval <result_dir> [--best]`,
+    `python -m rltime_tpu_torch.train_distributed` (N ranks) and
+    `python -m rltime_tpu_torch.dryrun` (every training leg once, at
+    tiny shapes, on d ranks).
 
     python -m rltime_tpu_torch.train minatar_breakout_dqn   # on the card
     python -m rltime_tpu_torch.train minatar_breakout_dqn --device cpu \
         --env.num_envs=8 --algo.batch_size=8 --train.total_env_steps=3000 \
         --train.warmup_env_steps=1000 --train.updates_per_chunk=2
 
-The one option not ported yet (`train.profile_dir/profile_port`: the
-port benchmark) raises `NotImplementedError` via `not_ported`.
+Every option of the reference's configs runs.
 """
 
 __version__ = "0.1.0"
-
-
-def not_ported(option: str, roadmap_item: str) -> NotImplementedError:
-    """The error for a configuration option this port does not run yet.
-
-    `roadmap_item` names the ROADMAP.md entry that will port it."""
-    return NotImplementedError(
-        f"{option} is not ported to rltime_tpu_torch yet "
-        f"(ROADMAP.md: {roadmap_item})")

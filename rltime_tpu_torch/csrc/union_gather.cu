@@ -41,8 +41,8 @@
 // once, before anything waits: a 7,056-byte row is 441 vectors, so one
 // round of loads covers it and no thread loops. Only then does each
 // warp read the window's W-1 done bytes, one per lane, gathered by a
-// ballot: the row loads and the done loads come back in one round trip,
-// not two. The row is loaded before its validity is known; a row that a
+// ballot (one per 32 flags, in order, where W > 32): the row loads and
+// the done loads come back in one round trip, not two. The row is loaded before its validity is known; a row that a
 // done flag cuts off from its stack's newest frame is stored as zeros.
 // A row goes to slot j of out_t (j < F) and to slot j - n of out_tn
 // (j >= n). Rows or bases that are not multiples of 16 bytes (5x7 uint8
@@ -94,6 +94,15 @@ struct Params {
   int32_t vec;             // rows and bases are multiples of 16 bytes
 };
 
+// Bits of the 32-flag word that starts at flag w0 which lie in [lo, hi).
+__device__ __forceinline__ uint32_t range_bits(int w0, int lo, int hi) {
+  const int a = max(lo - w0, 0);
+  const int z = min(hi - w0, 32);
+  if (a >= z) return 0u;
+  const uint32_t upto = z == 32 ? 0xffffffffu : (1u << z) - 1u;
+  return upto & ~((1u << a) - 1u);
+}
+
 __global__ void __launch_bounds__(kThreads)
 union_gather_kernel(const __grid_constant__ Params p) {
   const int F = p.F;
@@ -129,18 +138,30 @@ union_gather_kernel(const __grid_constant__ Params p) {
   }
 
   // The window's done flags, one per lane: bit k = done above union row
-  // k (the host keeps W - 1 <= 31 where there is a done ring). A row is
-  // kept iff no flag lies between it and its stack's newest row.
+  // k. A row is kept iff no flag lies between it and its stack's newest
+  // row: flags [j, F-1) for out_t, [j, W-1) for out_tn.
   bool ok_t = true;
   bool ok_tn = true;
   if (p.done != nullptr) {
     const int lane = threadIdx.x & 31;
-    uint8_t d = 0;
-    if (lane < W - 1) d = p.done[e * T + (c0 + lane) % T];
-    const uint32_t dones = __ballot_sync(0xffffffffu, d != 0);
-    const uint32_t stack_bits = (1u << (F - 1)) - 1u;
-    ok_t = (dones & stack_bits & ~((1u << j) - 1u)) == 0;
-    ok_tn = to_tn && ((dones >> n) & stack_bits & ~((1u << i) - 1u)) == 0;
+    if (W <= 32) {  // the W - 1 <= 31 flags in one ballot
+      uint8_t d = 0;
+      if (lane < W - 1) d = p.done[e * T + (c0 + lane) % T];
+      const uint32_t dones = __ballot_sync(0xffffffffu, d != 0);
+      const uint32_t stack_bits = (1u << (F - 1)) - 1u;
+      ok_t = (dones & stack_bits & ~((1u << j) - 1u)) == 0;
+      ok_tn = to_tn && ((dones >> n) & stack_bits & ~((1u << i) - 1u)) == 0;
+    } else {  // one ballot per 32 flags, words in order
+      ok_tn = to_tn;
+      for (int w0 = 0; w0 < W - 1; w0 += 32) {
+        const int k = w0 + lane;
+        uint8_t d = 0;
+        if (k < W - 1) d = p.done[e * T + (c0 + k) % T];
+        const uint32_t dones = __ballot_sync(0xffffffffu, d != 0);
+        ok_t = ok_t && (dones & range_bits(w0, j, F - 1)) == 0;
+        ok_tn = ok_tn && (dones & range_bits(w0, j, W - 1)) == 0;
+      }
+    }
   }
 
   const int4 zero4 = make_int4(0, 0, 0, 0);
@@ -178,15 +199,14 @@ union_gather_kernel(const __grid_constant__ Params p) {
 // row valid). The caller guarantees B, F, row_bytes > 0, n >= 0,
 // 0 < T < 2^31, env[b] in [0, E) and pointers to device memory of the
 // sizes above. Returns cudaErrorInvalidValue where B * (F + n) exceeds
-// the grid's 2^31 - 1 blocks, or F + n exceeds the 32 done flags of one
-// ballot where done is given.
+// the grid's 2^31 - 1 blocks.
 extern "C" int union_stack_gather(void* out_t, void* out_tn,
                                   const void* storage, const void* done,
                                   const void* env, const void* col, int64_t B,
                                   int64_t F, int64_t n, int64_t lead,
                                   int64_t T, int64_t row_bytes,
                                   void* stream) {
-  if (B * (F + n) > kMaxBlocks || (done != nullptr && F + n > 32)) {
+  if (B * (F + n) > kMaxBlocks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;

@@ -42,7 +42,6 @@ KERNELS = ("union_gather", "window_gather")
 LAUNCHES = {name: 0 for name in KERNELS}      # kernel launches
 PLAIN_CALLS = {name: 0 for name in KERNELS}   # launches the plain version served
 MAX_SEGMENTS = 8            # fields per window_gather_multi launch
-MAX_UNION_ROWS = 32         # F + n of union_stack_gather (one ballot)
 MAX_RING_LENGTH = 2 ** 30   # T: column arithmetic stays inside int32
 
 
@@ -256,7 +255,7 @@ def union_stack_gather(obs_storage: torch.Tensor, done_storage: torch.Tensor,
     for i < F (index 0 the OLDEST frame; frames of a previous episode
     are zeroed). obs_storage (E, T, *row) contiguous with at least one
     row axis, any dtype; done_storage (E, T) bool, contiguous; env, col
-    int32 (B,), all on one device; F >= 2, n >= 1, F + n <= 32. Returns
+    int32 (B,), all on one device; F >= 2, n >= 1. Returns
     (obs_t, obs_tn), each (B, F, *row). The kernel writes zero bytes
     (+0.0) where the plain version multiplies by 0, so on a float ring
     the two agree under `torch.equal` (it equates -0.0 and 0.0) for
@@ -266,9 +265,9 @@ def union_stack_gather(obs_storage: torch.Tensor, done_storage: torch.Tensor,
     if obs_storage.ndim < 3:
         raise ValueError("obs_storage must be a contiguous (E, T, *row) "
                          f"tensor, got shape {tuple(obs_storage.shape)}")
-    if F < 2 or n < 1 or F + n > MAX_UNION_ROWS:
-        raise ValueError(f"need num_frames >= 2, n_step >= 1 and their sum "
-                         f"<= {MAX_UNION_ROWS}, got {F} and {n}")
+    if F < 2 or n < 1:
+        raise ValueError(f"need num_frames >= 2 and n_step >= 1, got {F} "
+                         f"and {n}")
     if (done_storage.dtype != torch.bool
             or done_storage.shape != obs_storage.shape[:2]
             or not done_storage.is_contiguous()

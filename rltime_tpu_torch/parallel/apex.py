@@ -50,6 +50,7 @@ from rltime_tpu_torch.training.learner import AlgoConfig, make_train_state
 from rltime_tpu_torch.training.r2d2 import r2d2_horizon
 from rltime_tpu_torch.training.trainer import (
     TrainLoopConfig, _mk_model_cfg, model_in_shape, replay_fields,
+    score_scalars,
 )
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
@@ -307,6 +308,8 @@ class ApexTrainer:
             scalars["episode_return_median"] = float(np.median(rets))
         if lens:
             scalars["episode_len_mean"] = float(np.mean(lens))
+        # the lead's own env: other ranks' games do not reach the log
+        scalars.update(score_scalars(self.env))
         for name, secs in self.timers.pop().items():
             scalars[f"time/{name}_s"] = secs
         for k, v in metrics.items():

@@ -14,11 +14,16 @@ weights published every `train.publish_interval` chunks.
 `train.record_transcript` records every
 chunk's actions, sampled leaves and |TD| digests (`utils/transcript.py`)
 and writes `transcript.jsonl` beside the checkpoints.
+`train.profile_dir` traces the whole train loop with torch.profiler;
+`train.profile_port` serves on-demand captures of chunks
+(`utils/profiling.py`). The log carries the true game scores of an env
+that keeps them (`episode_score_*`, Atari envs).
 Built from the same JSON config dict as the JAX trainer, plus an
 explicit `device` ("cuda" raises when no card is present).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -29,7 +34,6 @@ import torch
 
 import rltime_tpu_torch.envs  # noqa: F401  (registers env types)
 import rltime_tpu_torch.exploration  # noqa: F401  (registers exploration types)
-from rltime_tpu_torch import not_ported
 from rltime_tpu_torch.acting.actor import Actor
 from rltime_tpu_torch.acting.device_actor import DeviceActor
 from rltime_tpu_torch.acting.pool import AsyncActorPool
@@ -49,7 +53,7 @@ from rltime_tpu_torch.training.r2d2 import (
 )
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
-from rltime_tpu_torch.utils.profiling import PhaseTimers
+from rltime_tpu_torch.utils.profiling import PhaseTimers, start_server, trace
 from rltime_tpu_torch.utils.transcript import Transcript
 
 
@@ -77,9 +81,17 @@ class TrainLoopConfig:
     def __post_init__(self):
         if self.trainer not in ("default", "fused", "apex"):
             raise ValueError(f"unknown trainer {self.trainer!r}")
-        if self.profile_dir or self.profile_port:
-            raise not_ported("train.profile_dir/profile_port",
-                             "the port benchmark")
+
+
+def score_scalars(env) -> Dict[str, float]:
+    """The true game scores of the games an env finished since the last
+    call (`pop_completed_scores`, Atari envs), as log scalars."""
+    scores = (env.pop_completed_scores()
+              if hasattr(env, "pop_completed_scores") else [])
+    if not scores:
+        return {}
+    return {"episode_score_mean": float(np.mean(scores)),
+            "episode_score_median": float(np.median(scores))}
 
 
 def _mk_model_cfg(model: Dict[str, Any], num_actions: int) -> ModelConfig:
@@ -201,6 +213,9 @@ class Trainer:
         self._chunks_trained = 0
 
         self.timers = PhaseTimers()
+        self.profile_server = (
+            start_server(self.loop_cfg.profile_port, result_dir)
+            if self.loop_cfg.profile_port > 0 else None)
         self.logger = logger or RunLogger(result_dir, config)
         self.last_metrics: Dict[str, torch.Tensor] = {}
         self.updates_done = 0
@@ -268,6 +283,11 @@ class Trainer:
         the chunk's K update draws replayed from the JAX key chain (see
         `learner.make_insert_and_update_step`). Training never passes it
         and draws from the train state's generator."""
+        with (self.profile_server.chunk() if self.profile_server
+              else contextlib.nullcontext()):
+            return self._train_chunk(draws)
+
+    def _train_chunk(self, draws):
         with self.timers.phase("act"):
             if self.pool is not None:
                 chunk, act_info = self.pool.get_chunk()
@@ -298,14 +318,16 @@ class Trainer:
         cfg = self.loop_cfg
         next_log = self.actor.env_steps + cfg.log_interval
         next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
-        while self.actor.env_steps < cfg.total_env_steps:
-            metrics, _ = self.train_chunk()
-            if self.actor.env_steps >= next_log:
-                next_log = self.actor.env_steps + cfg.log_interval
-                self._log(metrics)
-            if self.actor.env_steps >= next_ckpt:
-                next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
-                self.save_checkpoint()
+        with (trace(cfg.profile_dir) if cfg.profile_dir
+              else contextlib.nullcontext()):
+            while self.actor.env_steps < cfg.total_env_steps:
+                metrics, _ = self.train_chunk()
+                if self.actor.env_steps >= next_log:
+                    next_log = self.actor.env_steps + cfg.log_interval
+                    self._log(metrics)
+                if self.actor.env_steps >= next_ckpt:
+                    next_ckpt = self.actor.env_steps + cfg.checkpoint_interval
+                    self.save_checkpoint()
         if self.pool is not None:
             self.pool.close()
         self.save_checkpoint()
@@ -331,6 +353,7 @@ class Trainer:
             scalars["episode_len_mean"] = float(np.mean(lens))
             self._maybe_save_best(scalars["episode_return_mean"],
                                   len(rets))
+        scalars.update(score_scalars(self.env))
         for name, secs in self.timers.pop().items():
             scalars[f"time/{name}_s"] = secs
         for k, v in metrics.items():

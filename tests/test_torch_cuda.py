@@ -86,6 +86,9 @@ def _rand(shape, dtype, g):
     ((84, 84), torch.uint8, 3, 5),     # n > F: stacks do not overlap
     ((84, 84), torch.uint8, 16, 16),   # 32 union rows
     ((160, 160), torch.uint8, 4, 6),   # 25,600-byte rows: several rounds
+    ((84, 84), torch.uint8, 30, 5),    # 35 union rows: two ballots
+    ((84, 84), torch.uint8, 4, 29),
+    ((5, 7), torch.uint8, 2, 63),      # 65 union rows: three ballots
 ])
 def test_union_stack_gather_kernel_matches_plain(cuda_device, row_shape,
                                                  dtype, F, n):

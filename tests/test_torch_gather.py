@@ -155,6 +155,26 @@ def test_union_stack_gather_matches_jax(row_shape, dtype, F, n):
     np.testing.assert_array_equal(t_tn.numpy(), np.asarray(j_tn))
 
 
+@pytest.mark.parametrize("F,n", [(30, 5), (4, 29), (2, 63)])
+def test_union_stack_gather_beyond_32_rows(F, n):
+    """Windows of F + n > 32 rows, which the reference takes up to T: the
+    port's gather against the JAX package's frame_stack_union_gather on
+    a ring with done flags at a rate of 0.25, across the seam."""
+    E, T, B = 3, 160, 40
+    storage, env, col = _inputs(5, E, T, (5, 7), B)
+    col[4:7] = [2, F - 2, T - n]
+    done = np.random.default_rng(6).random((E, T)) < 0.25
+    j_t, j_tn = _jax_union_stacks(storage, done, env, col, F, n)
+    t_t, t_tn = gather.union_stack_gather(
+        torch.from_numpy(storage), torch.from_numpy(done),
+        torch.from_numpy(env), torch.from_numpy(col), F, n)
+    assert t_t.shape == t_tn.shape == (B, F, 5, 7)
+    np.testing.assert_array_equal(t_t.numpy(), np.asarray(j_t))
+    np.testing.assert_array_equal(t_tn.numpy(), np.asarray(j_tn))
+    assert t_t.flatten(1).any(1).all()            # the newest frame is kept
+    assert not t_t[:, 0].flatten(1).any(1).all()  # and old ones are cut
+
+
 def test_union_stack_gather_every_done_position():
     """One done flag at each position of the union window in turn (and
     none): every validity pattern a single episode end can give."""
@@ -191,7 +211,7 @@ def test_union_stack_gather_rejects_bad_inputs():
     with pytest.raises(ValueError):
         gather.union_stack_gather(obs, done, i32, i32, 4, 0)       # n < 1
     with pytest.raises(ValueError):
-        gather.union_stack_gather(obs, done, i32, i32, 20, 13)     # F+n > 32
+        gather.union_stack_gather(obs, done, i32, i32.float(), 4, 3)
     with pytest.raises(ValueError):
         gather.union_stack_gather(obs, done.to(torch.uint8), i32, i32, 4, 3)
     with pytest.raises(ValueError):

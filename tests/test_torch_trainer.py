@@ -9,8 +9,14 @@ bit-equal; the rest (actions, priorities, params) follows different
 random streams. Also: checkpoint save/restore, the CLI on the CPU, and
 that `--device cuda` without a card raises.
 """
+import copy
 import json
+import os
+import socket
+import urllib.request
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,7 +27,9 @@ from rltime_tpu_torch.ops import gather
 from rltime_tpu_torch.parallel.apex import ApexTrainer
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
 from rltime_tpu_torch.training.trainer import Trainer
+from test_torch_cartpole_learns import _copy_key, _set_learner
 from torch_port_draws import one_intra_op_thread  # noqa: F401
+from torch_port_native import jax_native_lib  # noqa: F401  (fixture)
 
 
 def _img_cfg():
@@ -160,27 +168,114 @@ def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "x").exists()
 
 
+def _trace_events(trace_dir):
+    """The events of the one torch.profiler trace file in `trace_dir`."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    assert len(files) == 1, files
+    with open(os.path.join(trace_dir, files[0])) as f:
+        return json.load(f)["traceEvents"]
+
+
 @pytest.mark.parametrize("section,key,value", [
-    ("train", "profile_dir", "x"), ("train", "profile_port", 9999),
+    ("train", "profile_dir", "trace"), ("train", "profile_port", 0),
     ("train", "trainer", "apex"), ("train", "async_acting", True),
 ])
 @pytest.mark.usefixtures("one_intra_op_thread")
-def test_unported_options_raise(tmp_path, section, key, value):
-    """The profiler options still raise; `train.trainer="apex"` and
-    `train.async_acting` run since the distribution slice."""
+def test_late_ported_options_run(tmp_path, section, key, value):
+    """The options ported after the first slices run: `train.trainer=
+    "apex"` and `train.async_acting` (distribution), and the profiler's
+    `train.profile_dir` (a trace of the whole loop) and
+    `train.profile_port` (a capture of one chunk, armed over HTTP)."""
     cfg = _img_cfg()
     cfg[section][key] = value
     cfg["train"]["total_env_steps"] = 176
-    if key.startswith("profile"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(cfg, str(tmp_path / "u"), device="cpu")
+    if key == "profile_dir":
+        cfg["train"]["profile_dir"] = str(tmp_path / "trace")
+    if key == "profile_port":
+        port = socket.socket()
+        port.bind(("127.0.0.1", 0))
+        cfg["train"]["profile_port"] = port.getsockname()[1]
+        port.close()
+        t = Trainer(cfg, str(tmp_path / "u"), device="cpu")
+        url = f"http://127.0.0.1:{t.profile_server.port}/trace?chunks=1"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            armed = json.loads(r.read())
+        t.train()
+        t.profile_server.close()
+        assert t.profile_server.captures == [armed["dir"]]
+        assert any(e.get("name", "").startswith("aten::")
+                   for e in _trace_events(armed["dir"]))
         return
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
     t = ttrain.run([str(path), "--device", "cpu", "--result-dir",
                     str(tmp_path / "u")])
     assert t.updates_done > 0
-    if key == "trainer":
+    if key == "profile_dir":
+        assert any(e.get("name", "").startswith("aten::")
+                   for e in _trace_events(str(tmp_path / "trace")))
+    elif key == "trainer":
         assert isinstance(t, ApexTrainer) and t.mesh.size == 1
     else:
         assert t.pool is not None and not t.pool.alive
+
+
+@pytest.mark.usefixtures("one_intra_op_thread")
+def test_trainer_rings_match_jax_on_atari_native(tmp_path, jax_native_lib):
+    """The host trainers over the C++ synthetic Atari lanes (2-D uint8
+    frames, life-loss `terminated`, game-over resets inside `step`),
+    chunk by chunk on the JAX actor's draws with the port's learner set
+    to the JAX one's before every chunk: every action the port chooses
+    equals the JAX actor's, the rings stay bit-equal, and the logged
+    true game scores (`episode_score_*`) are equal."""
+    cfg = _img_cfg()
+    cfg["env"] = {"type": "atari_native", "num_envs": 4, "num_threads": 1}
+    cfg["model"]["compute_dtype"] = "float32"
+    cfg["replay"]["steps_per_env"] = 256
+    cfg["train"].update(warmup_env_steps=256, chunk_len=16, log_interval=10**9,
+                        checkpoint_interval=10**9, track_best=False)
+    E, L, chunks = 4, 16, 40
+    jt = JTrainer(copy.deepcopy(cfg), str(tmp_path / "jax"))
+    tt = Trainer(copy.deepcopy(cfg), str(tmp_path / "torch"), device="cpu")
+    act_key = [_copy_key(jt.actor.state.key)]
+    jax_actions = {}
+    mismatches = []
+    port_act_step = tt.actor._act_step
+
+    def act_step(model, state, obs, done_prev, eps, t, explore_u, random_a,
+                 taus=None):
+        act_key[0], _, ekey, akey = jax.random.split(act_key[0], 4)
+        explore_u = torch.from_numpy(np.array(jax.random.uniform(ekey, (E,))))
+        random_a = torch.from_numpy(np.array(jax.random.randint(
+            akey, (E,), 0, tt.model_cfg.num_actions, dtype=jnp.int32)))
+        chosen, state, info = port_act_step(
+            model, state, obs, done_prev, eps, t, explore_u, random_a, taus)
+        want = torch.from_numpy(jax_actions["chunk"][:, t].copy())
+        mismatches.append(int((chosen != want).sum()))
+        return want, state, info
+
+    tt.actor._act_step = act_step
+    T = tt.replay_cfg.steps_per_env
+    for c in range(chunks):
+        _set_learner(tt, jt.train_state)
+        jm, _ = jt.train_chunk()
+        cols = [(c * L + i) % T for i in range(L)]
+        jax_actions["chunk"] = np.asarray(
+            jt.replay_state.storage["action"])[:, cols]
+        tm, _ = tt.train_chunk()
+        if c % 10 == 9:
+            jt._log(jm)
+            tt._log(tm)
+    for name, ring in tt.replay_state.storage.items():
+        np.testing.assert_array_equal(
+            ring.numpy(), np.asarray(jt.replay_state.storage[name]),
+            err_msg=name)
+    assert sum(mismatches) == 0 and len(mismatches) == chunks * L
+    assert tt.updates_done == jt.updates_done > 0
+    assert tt.replay_state.storage["terminated"].any()
+    assert np.isfinite(tt.last_metrics["loss"].item())
+    keys = ("episode_score_mean", "episode_score_median")
+    logs = [[{k: s[k] for k in keys if k in s} for s in map(
+        json.loads, (tmp_path / d / "scalars.jsonl").read_text().splitlines())]
+        for d in ("torch", "jax")]
+    assert logs[0] == logs[1] and any(logs[0])

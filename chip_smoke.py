@@ -90,6 +90,23 @@ Phases (any failure exits non-zero and prints no result line):
      a mesh; `pong_dqn_counting` with `train.async_acting` beside the
      synchronous trainer; and `python -m rltime_tpu_torch.train_distributed`
      on one rank in a subprocess;
+ 14. (run right after phase 7) the captured route's capturable Adam
+     against the eager paths' host-scalar Adam over 5 steps; the bench's
+     learner superstep
+     (`rltime_tpu_torch/utils/benchprog.py`, what `python -m
+     rltime_tpu_torch.bench` times) at its full shapes: E=64 x T=1024 ring
+     of 84x84 uint8 (0.46 GB), S=64 x (insert + K=1 update) per dispatch,
+     batch 1024, Nature CNN bf16, captured into one CUDA graph (a 0.93
+     GB static chunk buffer). Under cudnn.deterministic: 64 union_gather
+     and 64 window_gather kernel nodes counted inside the graph (its
+     Graphviz dump), no plain call; one replay equal to the eager body
+     from a cloned state (tree, sampled leaves, cursor, counter, rings,
+     metrics, params); a replay under set_sync_debug_mode("error"). Then
+     `bench.bench_learner()` (default cuDNN): captured and eager
+     transitions/s over 5 windows, ms per update, MFU, the device-busy
+     share of a profiled replay; then the IQN (batch 1024, S=8) and R2D2
+     (batch 64, S=4) legs: two eager dispatches, the capture, one replay,
+     their kernel nodes counted;
  13. (run right after phase 4) the host Atari engine: the C++ lane
      pool's backend (synthetic where the library was built without ALE
      headers) and its own rate on 64 lanes, then configs #2, #4 and #5
@@ -597,6 +614,12 @@ def phase_kernels(smi: str):
                   [(fields["reward"], 0, 3), (fields["done"], 0, 3),
                    (fields["terminated"], 0, 3), (fields["action"], 0, 1)],
                   256)
+    # ... and at the bench superstep's (utils/benchprog.py, phase 14): the
+    # same four strips at batch 1024
+    compare_multi("multi B=1024 bench update (4 segments)",
+                  [(fields["reward"], 0, 3), (fields["done"], 0, 3),
+                   (fields["terminated"], 0, 3), (fields["action"], 0, 1)],
+                  1024)
     # ... and at the config-#2 Q(lambda) update's: the F + n = 7 frames
     # and 7 dones from col - 3 that serve the n + 1 stacks, the three
     # n = 3 strips and the action
@@ -1183,6 +1206,206 @@ def phase_fused_bench_shape(smi: str):
           f"{dispatches * 256 / wall:.2f} updates/s, "
           f"{wall / dispatches * 1e3:.1f} ms/dispatch, last loss {loss:.6g}"
           f"  [{smi}]", flush=True)
+
+
+# phase 14's other legs: the JAX bench's IQN (iqn_b1024_k1) and R2D2
+# (r2d2_b64_k1) learner legs of tools/bench_algo_legs.py at the bench's
+# widths, S cut from 64 (8 and 4 there) so each captures in seconds
+BENCH_LEGS = (dict(algo="iqn", supersteps=8),
+              dict(algo="r2d2", batch=64, supersteps=4))
+BENCH_KERNELS = ("union_gather_kernel", "window_gather_kernel")
+
+
+def _graph_launches(p, tag: str) -> dict:
+    """Kernel nodes of each gather inside `p`'s captured superstep, from
+    the graph's Graphviz dump; checks one K1 (and for dqn/IQN one K2)
+    node per update and none of the plain versions."""
+    from rltime_tpu_torch.ops import gather
+    dot = ROOT / "results" / f"chip_smoke_graph_{tag}.dot"
+    dot.parent.mkdir(parents=True, exist_ok=True)
+    counts = p.graph.kernel_counts(BENCH_KERNELS, str(dot))
+    n = p.S * p.K
+    want = {"union_gather_kernel": 0 if p.acfg.algo == "r2d2" else n,
+            "window_gather_kernel": n}
+    check(counts == want, f"{tag}: kernel nodes in the graph {counts}, "
+          f"expected {want} for {n} updates")
+    check(not any(gather.PLAIN_CALLS.values()),
+          f"{tag}: plain calls {gather.PLAIN_CALLS}")
+    return {"union_gather": counts["union_gather_kernel"],
+            "window_gather": counts["window_gather_kernel"]}
+
+
+def _check_capturable_adam(smi: str) -> None:
+    """The captured route's Adam (`make_optimizer(..., capturable=True)`:
+    its step count and bias corrections on the device) against the
+    eager paths' (torch's host-scalar Adam) over five steps on the same
+    gradients, at the Nature CNN dueling net's 16 tensors and lr 1e-4.
+    Both round the same formula differently in its last bits, so the
+    params are held to 1e-6, 1% of one step's move. Then the wall time
+    of one step of each (CUDA events)."""
+    import torch
+    from rltime_tpu_torch.training.learner import AlgoConfig, make_optimizer
+    cfg = AlgoConfig(lr=1e-4)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(32, 4, 8, 8), (32,), (64, 32, 4, 4), (64,), (64, 64, 3, 3),
+              (64,), (512, 3136), (512,), (256, 512), (256,), (1, 256),
+              (1,), (256, 512), (256,), (6, 256), (6,)]
+    cap = [torch.nn.Parameter(0.05 * torch.randn(s, generator=g,
+                                                 device="cuda"))
+           for s in shapes]
+    host = [torch.nn.Parameter(x.detach().clone()) for x in cap]
+    opt_cap = make_optimizer(cfg, cap, capturable=True)
+    opt_host = make_optimizer(cfg, host)
+    check(opt_cap.defaults["capturable"]
+          and not opt_host.defaults["capturable"],
+          "make_optimizer: capturable Adam only where asked for")
+    for _ in range(5):
+        for a, b in zip(cap, host):
+            a.grad = torch.randn(a.shape, generator=g, device="cuda")
+            b.grad = a.grad.clone()
+        opt_cap.step()
+        opt_host.step()
+    diff = max((a - b).abs().max().item() for a, b in zip(host, cap))
+    check(diff <= 1e-6, f"capturable Adam vs host Adam: {diff}")
+    cap_ms, host_ms = median_ms(opt_cap.step), median_ms(opt_host.step)
+    print(f"capturable Adam (the captured route) vs host-scalar Adam (the "
+          f"eager paths), 5 steps on the same gradients: max abs param "
+          f"difference {diff:.3g} (tolerance 1e-6); one step {cap_ms:.4f} "
+          f"ms capturable, {host_ms:.4f} ms host-scalar  [{smi}]",
+          flush=True)
+
+
+def phase_bench_superstep(smi: str) -> dict:
+    """Phase 14: `utils/benchprog.py` at the full bench shapes (64 x
+    1024 ring of 84x84 uint8, 0.46 GB; S=64 x (insert + 1 update) at
+    batch 1024, Nature CNN bf16; a 0.93 GB static chunk buffer): the dqn
+    superstep captured into one CUDA graph under cudnn.deterministic,
+    its kernel nodes counted in the graph, one replay held against the
+    eager body from a cloned state, a replay under
+    set_sync_debug_mode("error"), then `bench.bench_learner` (default
+    cuDNN) for the rates, and the IQN and R2D2 legs for one replay each.
+    Returns the kernel nodes of each graph (one dispatch's launches)."""
+    import torch
+    from rltime_tpu_torch import bench
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.utils import benchprog
+    t_phase = time.perf_counter()
+    _check_capturable_adam(smi)
+    by_path = {}
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        p = benchprog.build(device="cuda", debug_outputs=True)
+        p.graph.debug = True                  # keep the graph to count
+        beta = torch.full((), 0.4, device="cuda")
+        gather.reset_counts()
+        chunks = p.stacked(50)
+        for _ in range(p.graph.WARMUP + 1):   # eager warm-ups, capture
+            p.superstep(p.tstate, p.rstate, beta, chunks)
+        torch.cuda.synchronize()
+        check(p.graph.graph is not None, "bench superstep not captured")
+        # two eager dispatches and the capture ran the Python wrappers
+        passes = p.graph.WARMUP + 1
+        check(gather.LAUNCHES == {"union_gather": passes * p.S,
+                                  "window_gather": passes * p.S},
+              f"bench superstep: wrapper launches {gather.LAUNCHES}")
+        by_path["benchprog dqn (one replay)"] = _graph_launches(p, "dqn")
+        chunks = p.stacked(50 + p.S)
+        ts, rs = benchprog.clone_states(p.tstate, p.rstate)
+        gather.reset_counts()
+        _, _, mg = p.superstep(p.tstate, p.rstate, beta, chunks)
+        check(not any(gather.LAUNCHES.values()),
+              f"a replay ran a wrapper: {gather.LAUNCHES}")
+        _, _, me = p.eager_superstep(ts, rs, beta, chunks)
+        torch.cuda.synchronize()
+        for name, a, b in (
+                [("tree", p.rstate.tree, rs.tree),
+                 ("cursor", p.rstate.cursor, rs.cursor),
+                 ("counter", p.tstate.counter, ts.counter),
+                 ("max_priority", p.rstate.max_priority, rs.max_priority),
+                 ("sampled leaves", mg["debug_leaf"], me["debug_leaf"])]
+                + [(f"ring {n}", x, rs.storage[n])
+                   for n, x in p.rstate.storage.items()]):
+            check(torch.equal(a, b), f"graph vs eager: {name} differs")
+        diffs = {k: (mg[k].float() - me[k].float()).abs().max().item()
+                 for k in mg}
+        for net, other in ((p.tstate.model, ts.model),
+                           (p.tstate.target, ts.target)):
+            for (name, a), b in zip(net.state_dict().items(),
+                                    other.state_dict().values()):
+                diffs[name] = max(diffs.get(name, 0.0), (a.float() - b.float()
+                                                          ).abs().max().item())
+        worst = max(diffs.values())
+        # tolerance 0: under cudnn.deterministic the graph replays the
+        # eager body's kernels on the same inputs
+        check(worst == 0.0, f"graph vs eager: max abs difference {worst} "
+              f"({ {k: v for k, v in diffs.items() if v} })")
+        print(f"bench superstep (E=64, T=1024, L=32, batch 1024, S=64, K=1, "
+              f"Nature CNN bf16): one replay == the eager body from a clone "
+              f"(tree, {p.S * p.K} updates' last sampled leaves, cursor "
+              f"{p.rstate.cursor.item()}, counter {p.tstate.counter.item()}, "
+              f"rings, metrics, params: max abs difference {worst}); graph "
+              f"kernel nodes {by_path['benchprog dqn (one replay)']}, "
+              "0 plain calls", flush=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, m = p.superstep(p.tstate, p.rstate, beta, chunks)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(math.isfinite(m["loss"].item()), "bench superstep: loss")
+        print("bench superstep: a replay (input copies included) under "
+              "set_sync_debug_mode('error'): 0 host syncs", flush=True)
+    finally:
+        cudnn.deterministic = deterministic
+    del p, ts, rs, mg, me, m, chunks
+    torch.cuda.empty_cache()
+    res = bench.bench_learner()
+    print(f"bench learner (default cuDNN; {bench.WINDOWS} windows of "
+          f"{bench.DISPATCHES} staged dispatches): captured "
+          f"{res['learner_transitions_per_s']:.1f} transitions/s "
+          f"(windows {[round(x, 1) for x in res['learner_transitions_per_s_windows']]}), "
+          f"{res['ms_per_update']:.4f} ms/update; eager "
+          f"{res['learner_transitions_per_s_eager']:.1f} transitions/s "
+          f"({res['ms_per_update_eager']:.4f} ms/update); "
+          f"{res['update_tflops_per_s']:.3f} TFLOP/s, MFU "
+          f"{res['mfu_pct_h100_bf16']:.3f}% of the bf16 peak; a profiled "
+          f"replay: device busy {res['device_busy_ms_per_dispatch']:.3f} of "
+          f"{res['profiled_dispatch_ms']:.3f} ms "
+          f"({res['device_busy_share']:.1%}); peak device memory "
+          f"{res['peak_memory_gb']:.3f} GB  [{smi}]", flush=True)
+    for name, ms in res["top_kernels_ms_per_dispatch"]:
+        print(f"  device {ms:9.4f} ms/dispatch  {name}", flush=True)
+    for leg in BENCH_LEGS:
+        tag = leg["algo"]
+        t0 = time.perf_counter()
+        p = benchprog.build(device="cuda", **leg)
+        p.graph.debug = True
+        beta = torch.full((), 0.4, device="cuda")
+        chunks = p.stacked(50)
+        gather.reset_counts()
+        for _ in range(p.graph.WARMUP + 1):
+            p.superstep(p.tstate, p.rstate, beta, chunks)
+        chunks = p.stacked(50 + p.S)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, m = p.superstep(p.tstate, p.rstate, beta, chunks)
+        loss = m["loss"].item()
+        replay_ms = (time.perf_counter() - t1) * 1e3
+        check(math.isfinite(loss) and p.tstate.updates == 4 * p.S * p.K,
+              f"{tag} leg: loss {loss}, {p.tstate.updates} updates")
+        by_path[f"benchprog {tag} (one replay)"] = _graph_launches(p, tag)
+        print(f"bench {tag} leg (batch {p.batch}, S={p.S}, K={p.K}): one "
+              f"replay {replay_ms:.2f} ms, "
+              f"{p.S * p.K * p.tx_per_update / replay_ms * 1e3:.1f} "
+              f"transitions/s, loss {loss:.6g}; graph kernel nodes "
+              f"{by_path[f'benchprog {tag} (one replay)']}; build, 2 eager "
+              f"dispatches and the capture {t1 - t0:.1f} s  [{smi}]",
+              flush=True)
+        del p, m, chunks
+        torch.cuda.empty_cache()
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
 
 
 def phase_fused_others():
@@ -2143,6 +2366,7 @@ def main() -> int:
     phase_fused_bench_shape(smi)
     phase_fused_others()
     torch.cuda.empty_cache()
+    bench_launches = phase_bench_superstep(smi)
     phase_small_parity()
     phase_fused_parity()
     phase_fused_parity(interleave=True)
@@ -2189,7 +2413,8 @@ def main() -> int:
                 DQN_OPTIONS_PATH["tag"]: option_launches[name],
                 DQN_LAMBDA_PATH["tag"]: lambda_launches[name],
                 APEX_PATH["preset"]: apex_launches[name],
-                **{tag: n[name] for tag, n in native_launches.items()}}
+                **{tag: n[name] for tag, n in native_launches.items()},
+                **{tag: n[name] for tag, n in bench_launches.items()}}
 
     # a gather does no arithmetic: each is bound by the bytes it moves
     record = {"kernels": [

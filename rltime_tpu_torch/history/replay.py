@@ -14,7 +14,13 @@ Differences from the JAX version, by design:
     chunk one contiguous column slice) and mutates the state it is
     given; the JAX version donates and returns a new state.
   * The write cursor `t` is a host int: the insert slices the ring at
-    it, and a device scalar would cost a host sync per insert.
+    it, and a device scalar would cost a host sync per insert. A
+    captured step (`utils/benchprog.py`) cannot read a host int that
+    changes between replays, so it keeps the cursor as a device tensor
+    too (`ReplayState.cursor`, the JAX version's `t` in the scan carry)
+    and inserts and samples with `replay_insert_device` and
+    `replay_sample_indices_device`: the same columns, leaves and
+    weights, nothing read back to the host.
   * Window gathers run on the CUDA kernels of `ops.gather`: all the
     strips, single columns and the R2D2 frame sequence of one update in
     one `window_gather_multi` launch (K1, `replay_gather_segments`), the
@@ -91,6 +97,10 @@ class ReplayState:
     tree: torch.Tensor                 # dense (N,) priorities, (2N,) sum
                                        # tree, or a (1,) dummy if uniform
     max_priority: torch.Tensor         # f32 scalar, already ^alpha
+    # the write cursor as a 0-d int64 tensor on the replay's device, for
+    # the device-cursor functions; None where only `t` is kept. Those
+    # functions leave `t` alone: their caller adds what they inserted.
+    cursor: Optional[torch.Tensor] = None
 
 
 def replay_init(cfg: ReplayConfig,
@@ -132,15 +142,46 @@ def replay_insert(cfg: ReplayConfig, state: ReplayState,
     activates columns [t-horizon, t+L-horizon): at max priority, or with
     `use_inserted_priorities` and a stored "priority" field at the
     actor's (p + min_priority)^alpha, which also raises max_priority."""
-    E, T, L = cfg.num_envs, cfg.steps_per_env, cfg.chunk_len
+    T, L = cfg.steps_per_env, cfg.chunk_len
     col = state.t % T
     device = state.tree.device
     for name, arr in chunk.items():
         state.storage[name][:, col:col + L].copy_(_as_tensor(arr, device))
-    if not cfg.prioritized:
-        state.t += L
-        return state
+    if cfg.prioritized:
+        _activate(cfg, state, col, state.t)
+    state.t += L
+    return state
 
+
+def replay_insert_device(cfg: ReplayConfig, state: ReplayState,
+                         chunk: Dict[str, Any]) -> ReplayState:
+    """`replay_insert` at the device cursor `state.cursor`, for a step
+    captured into a CUDA graph: the columns (t + arange(L)) mod T are
+    written with one `index_copy_` per field, the dead and live leaves
+    and their `act_u >= 0` rule are computed from the cursor on the
+    device, and the cursor advances by L in place. The same bytes and
+    leaves as `replay_insert` at the same cursor; `state.t` is not
+    touched."""
+    L, T = cfg.chunk_len, cfg.steps_per_env
+    device = state.tree.device
+    t = state.cursor
+    col = torch.remainder(t, T)
+    cols = torch.remainder(col + torch.arange(L, device=device), T)
+    for name, arr in chunk.items():
+        state.storage[name].index_copy_(1, cols, _as_tensor(arr, device))
+    if cfg.prioritized:
+        _activate(cfg, state, col, t)
+    state.cursor.add_(L)
+    return state
+
+
+def _activate(cfg: ReplayConfig, state: ReplayState, col, t) -> None:
+    """The leaf bookkeeping of an insert at cursor `t` (column `col` =
+    t mod T), host ints or 0-d device tensors: zero the overwritten
+    columns' leaves and those `lookback` ahead, then activate the columns
+    `horizon` behind."""
+    E, T, L = cfg.num_envs, cfg.steps_per_env, cfg.chunk_len
+    device = state.tree.device
     st = _tree_ops(cfg)
     env_ids = torch.arange(E, device=device).repeat_interleave(L)
     offs = torch.arange(L, device=device).repeat(E)
@@ -154,7 +195,7 @@ def replay_insert(cfg: ReplayConfig, state: ReplayState,
         tree = st.set_priorities(
             tree, dead2, torch.zeros_like(dead2, dtype=tree.dtype),
             unique=True)
-    act_u = state.t + offs - cfg.horizon      # unwrapped times
+    act_u = t + offs - cfg.horizon      # unwrapped times
     act_cols = torch.remainder(act_u, T)
     live = _flat_leaf(cfg, env_ids, act_cols)
     inserted = cfg.use_inserted_priorities and "priority" in state.storage
@@ -170,8 +211,6 @@ def replay_insert(cfg: ReplayConfig, state: ReplayState,
     if inserted:
         state.max_priority = torch.maximum(state.max_priority,
                                            torch.max(prio))
-    state.t += L
-    return state
 
 
 def valid_range(cfg: ReplayConfig, t: int) -> Tuple[int, int]:
@@ -212,6 +251,34 @@ def replay_sample_indices(cfg: ReplayConfig, state: ReplayState,
                     weight=torch.ones((batch,), dtype=torch.float32,
                                       device=tree.device),
                     num_valid=num_valid)
+    return _per_sample(cfg, tree, batch, beta, num_valid, generator, u)
+
+
+def replay_sample_indices_device(cfg: ReplayConfig, state: ReplayState,
+                                 batch: int, beta,
+                                 generator: Optional[torch.Generator] = None,
+                                 u: Optional[torch.Tensor] = None):
+    """`replay_sample_indices` at the device cursor `state.cursor`: the
+    valid range and `num_valid` (a 0-d int64 tensor here) are computed on
+    the device, so nothing is read back to the host and a captured step
+    samples from the cursor of each replay. PER only: the uniform
+    sampler's column bound is a host int (`torch.randint`)."""
+    if not cfg.prioritized:
+        raise ValueError("the device-cursor sampler is the PER sampler; "
+                         "uniform replay draws its columns below a host "
+                         "bound (ROADMAP.md queue 1 item 3)")
+    t = state.cursor
+    lo = torch.clamp(t - cfg.steps_per_env + cfg.lookback, min=0)
+    hi = torch.maximum(t - cfg.horizon, lo)
+    num_valid = (hi - lo) * cfg.num_envs
+    return _per_sample(cfg, state.tree, batch, beta, num_valid, generator, u)
+
+
+def _per_sample(cfg: ReplayConfig, tree: torch.Tensor, batch: int, beta,
+                num_valid, generator, u):
+    """The PER draw of both samplers. `num_valid` is a host int or a 0-d
+    int64 tensor; either way N * P is one float32 product."""
+    T = cfg.steps_per_env
     st = _tree_ops(cfg)
     if u is None:
         u = torch.rand((batch,), generator=generator, dtype=tree.dtype,
@@ -220,7 +287,7 @@ def replay_sample_indices(cfg: ReplayConfig, state: ReplayState,
     env = leaf // T
     col = leaf - env * T
     p = prio / torch.clamp(st.total(tree), min=1e-30)
-    w = (float(num_valid) * p) ** (-beta)
+    w = (num_valid * p) ** (-beta)
     # a zero weight (not inf/NaN) is the safe failure on a zero leaf
     w = torch.where(prio > 0, w, torch.zeros_like(w))
     w = w / torch.clamp(torch.max(w), min=1e-30)

@@ -16,7 +16,10 @@ trainer logs.
 PyTorch runs eagerly, so JAX's `lax.scan` over K updates is a plain
 loop (`make_insert_and_update_step`). The update mutates the model,
 optimizer and replay state in place and returns them for symmetry with
-the JAX API.
+the JAX API. The same update can be captured into a CUDA graph
+(`utils/benchprog.py`): with a device counter (`TrainState.counter`)
+and a device cursor (`ReplayState.cursor`) it reads no host value that
+changes between updates, and there Adam is `capturable`.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch
 from rltime_tpu_torch.history.replay import (
     ReplayConfig, ReplayState, frame_stack_union_gather,
     frame_stack_union_gather_nhwc, replay_gather_segments, replay_insert,
-    replay_sample_indices, replay_update_priorities, sequence_stack_gather,
+    replay_sample_indices, replay_sample_indices_device,
+    replay_update_priorities, sequence_stack_gather,
 )
 from rltime_tpu_torch.models.policy import ModelConfig, QPolicy
 from rltime_tpu_torch.ops import losses, returns
@@ -56,8 +60,11 @@ class AlgoConfig:
     per_beta_start: float = 0.4
     per_beta_end: float = 1.0
     exact_truncation: bool = True
-    # The JAX version's fused online+target next-obs forward; here the
-    # two no_grad forwards run either way (the same math).
+    # The JAX version vmaps the online and target next-obs forwards over
+    # the two stacked param trees (one batched program for XLA). The
+    # port accepts the flag and runs the two no_grad forwards either
+    # way: the same values (tests/test_torch_benchprog.py holds the
+    # loss and targets with the flag on against the JAX package's).
     batched_next_forward: bool = False
     gather_barrier: bool = False
     num_tau: int = 64
@@ -88,6 +95,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer   # Adam or CenteredRMSProp
     generator: torch.Generator     # PER sampling uniforms, IQN taus
     updates: int = 0               # learner update counter
+    # the update counter as a 0-d int64 tensor on the device, for a
+    # captured step: `apply_gradients` then counts and syncs the target
+    # there and leaves `updates` to its caller. None: the host count.
+    counter: Optional[torch.Tensor] = None
 
 
 class CenteredRMSProp(torch.optim.Optimizer):
@@ -130,14 +141,21 @@ class CenteredRMSProp(torch.optim.Optimizer):
             torch._foreach_addcdiv_(params, grads, var, value=-group["lr"])
 
 
-def make_optimizer(cfg: AlgoConfig, params) -> torch.optim.Optimizer:
+def make_optimizer(cfg: AlgoConfig, params,
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """Adam with optax.adam's formula, or optax's centered RMSProp (the
-    clip is applied by hand in the update step, with optax's rule)."""
+    clip is applied by hand in the update step, with optax's rule).
+
+    `capturable` (a step that a CUDA graph holds; torch allows it on the
+    card only): Adam's step count lives on the device and its bias
+    corrections are device ops. An eager step keeps torch's host-scalar
+    Adam, which launches less (PERF.md §6). `CenteredRMSProp` has
+    no step count and reads nothing from the host either way."""
     if cfg.optimizer == "rmsprop":
         return CenteredRMSProp(params, lr=cfg.lr, decay=cfg.rmsprop_decay,
                                eps=cfg.adam_eps)
     return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
-                            eps=cfg.adam_eps)
+                            eps=cfg.adam_eps, capturable=capturable)
 
 
 def learning_rate(cfg: AlgoConfig, count: int) -> float:
@@ -151,15 +169,17 @@ def learning_rate(cfg: AlgoConfig, count: int) -> float:
 
 def make_train_state(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                      in_shape: Sequence[int], seed: int,
-                     device: torch.device) -> TrainState:
+                     device: torch.device,
+                     capturable: bool = False) -> TrainState:
     """Init params on the CPU from a generator named after `seed` (so
-    every device starts from the same weights), then move them."""
+    every device starts from the same weights), then move them.
+    `capturable`: see `make_optimizer`."""
     model = QPolicy(model_cfg, in_shape,
                     make_generator(seed, "init")).to(device)
     target = copy.deepcopy(model).requires_grad_(False)
     return TrainState(
         model=model, target=target,
-        optimizer=make_optimizer(algo_cfg, model.parameters()),
+        optimizer=make_optimizer(algo_cfg, model.parameters(), capturable),
         generator=make_generator(seed, "sample", device))
 
 
@@ -222,8 +242,15 @@ def _gather_batch(replay_cfg: ReplayConfig, rstate: ReplayState,
 
 
 def _global_norm(tensors) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of all squared entries."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    """optax.global_norm: sqrt of the sum of all squared entries, as
+    the norm of one copy of the entries in logical order. A reduction
+    adds in memory order (and on the card reads an unaligned view by
+    another path), and gradients come in more than one layout: autograd
+    hands some weight gradients back transposed, a mesh hands them back
+    as views of one flat buffer. Over the copy the norm depends on the
+    values only."""
+    return torch.linalg.vector_norm(
+        torch.cat([t.reshape(-1) for t in tensors]))
 
 
 def apply_gradients(cfg: AlgoConfig, state: TrainState,
@@ -232,6 +259,13 @@ def apply_gradients(cfg: AlgoConfig, state: TrainState,
     clip, the optimizer's step (Adam or centered RMSProp), the update
     count and the periodic target sync, in place. Returns the pre-clip
     gradient norm (as the JAX version reports it).
+
+    With a device counter (`state.counter`) the count is a device add
+    and the sync a `torch.where` into each target tensor on
+    counter % target_update_freq == 0, as the JAX version's `jnp.where`:
+    nothing is read back, so a CUDA graph can hold it. A linear lr decay
+    would write a host float into the optimizer each update, so that
+    route refuses it.
 
     `mesh` (`parallel/mesh.py`): the gradients are averaged over its
     ranks in one all-reduce BEFORE the norm and the clip, where JAX's
@@ -252,17 +286,39 @@ def apply_gradients(cfg: AlgoConfig, state: TrainState,
     for p, g in zip(params, grads):
         p.grad = g
     if cfg.lr_decay_updates > 0:
+        if state.counter is not None:
+            raise ValueError(
+                "algo.lr_decay_updates > 0 on the device-counter route: "
+                "the schedule writes a host float each update, which a "
+                "CUDA graph would bake in (ROADMAP.md queue 1 item 3)")
         for group in state.optimizer.param_groups:
             group["lr"] = learning_rate(cfg, state.updates)
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
 
+    if state.counter is not None:
+        state.counter.add_(1)
+        sync = torch.remainder(state.counter, cfg.target_update_freq) == 0
+        with torch.no_grad():
+            for tp, p in zip(state.target.parameters(), params):
+                torch.where(sync, p, tp, out=tp)
+        return g_norm
     state.updates += 1
     if state.updates % cfg.target_update_freq == 0:
         with torch.no_grad():
             for tp, p in zip(state.target.parameters(), params):
                 tp.copy_(p)
     return g_norm
+
+
+def sample_indices(replay_cfg: ReplayConfig, rstate: ReplayState, batch: int,
+                   beta, generator: torch.Generator,
+                   u: Optional[torch.Tensor] = None):
+    """The update's sample: at the device cursor where the replay keeps
+    one (`replay_sample_indices_device`), else at the host int."""
+    sample = (replay_sample_indices if rstate.cursor is None
+              else replay_sample_indices_device)
+    return sample(replay_cfg, rstate, batch, beta, generator=generator, u=u)
 
 
 def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
@@ -352,8 +408,7 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
     def update_step(state: TrainState, rstate: ReplayState, beta,
                     u: Optional[torch.Tensor] = None,
                     taus: Optional[Dict[str, torch.Tensor]] = None):
-        idx = replay_sample_indices(replay_cfg, rstate, B, beta,
-                                    generator=state.generator, u=u)
+        idx = sample_indices(replay_cfg, rstate, B, beta, state.generator, u)
         batch = _gather_batch(replay_cfg, rstate, idx["env"], idx["col"],
                               frame_stack, cfg.n_step, flatten,
                               lambda_mode=lambda_mode,

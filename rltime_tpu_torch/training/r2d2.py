@@ -27,15 +27,15 @@ from typing import Optional
 import torch
 
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, ReplayState, replay_sample_indices,
-    replay_update_priorities, sequence_stack_gather,
+    ReplayConfig, ReplayState, replay_update_priorities,
+    sequence_stack_gather,
 )
 from rltime_tpu_torch.models.policy import (
     ModelConfig, head_seq, unroll_features,
 )
 from rltime_tpu_torch.ops import losses, returns
 from rltime_tpu_torch.training.learner import (
-    AlgoConfig, TrainState, apply_gradients,
+    AlgoConfig, TrainState, apply_gradients, sample_indices,
 )
 
 
@@ -108,8 +108,7 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
 
     def update_step(state: TrainState, rstate: ReplayState, beta,
                     u: Optional[torch.Tensor] = None):
-        idx = replay_sample_indices(replay_cfg, rstate, B, beta,
-                                    generator=state.generator, u=u)
+        idx = sample_indices(replay_cfg, rstate, B, beta, state.generator, u)
         env, col = idx["env"], idx["col"]
         # the strips over the window and the stored carry at col (if col
         # starts an episode, the unroll resets it anyway) ride with the

@@ -200,3 +200,82 @@ def test_window_gather_rejects_mixed_devices(cuda_device):
     idx = torch.zeros((4,), dtype=torch.int32)
     with pytest.raises(ValueError):
         gather.window_gather(storage, idx, idx, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["dqn", "iqn", "r2d2"])
+def test_captured_superstep_equals_eager_body(cuda_device, algo, monkeypatch,
+                                              tmp_path):
+    """`utils/benchprog.py` at a small size: one CUDA-graph replay of
+    S=2 x (insert + K=2 updates) against the same body run op by op from
+    a clone of the same state: rings, tree, cursor, counter, metrics and
+    parameters equal (cuDNN deterministic), and the graph holds one K2
+    (dqn, iqn) and one K1 kernel node per update."""
+    from rltime_tpu_torch.utils import benchprog
+    monkeypatch.setattr(benchprog, "T", 64)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(warm_chunks=4, batch=8, k=2, supersteps=2, num_envs=4,
+              chunk_len=8, algo=algo, debug_outputs=True)
+    if algo == "r2d2":
+        kw.update(batch=4, burn_in=4, seq_len=8)
+    p = benchprog.build(device="cuda", **kw)
+    p.graph.debug = True                      # keep the graph to count
+    beta = torch.full((), 0.5, device=cuda_device)
+    for i in range(p.graph.WARMUP + 1):       # eager warm-ups, then capture
+        p.superstep(p.tstate, p.rstate, beta, p.stacked(10 + 2 * i))
+    assert p.graph.graph is not None
+    chunks = p.stacked(100)
+    ts, rs = benchprog.clone_states(p.tstate, p.rstate)
+    gather.reset_counts()
+    _, _, graph_m = p.superstep(p.tstate, p.rstate, beta, chunks)
+    assert gather.LAUNCHES == {"union_gather": 0, "window_gather": 0}
+    _, _, eager_m = p.eager_superstep(ts, rs, beta, chunks)
+    torch.cuda.synchronize()
+    assert p.rstate.t == rs.t and p.tstate.updates == ts.updates
+    for a, b in ((p.rstate.tree, rs.tree), (p.rstate.cursor, rs.cursor),
+                 (p.rstate.max_priority, rs.max_priority),
+                 (p.tstate.counter, ts.counter)):
+        assert torch.equal(a, b)
+    for name, ring in p.rstate.storage.items():
+        assert torch.equal(ring, rs.storage[name]), name
+    for k, v in graph_m.items():
+        assert torch.equal(v, eager_m[k]), k
+    for net, other in ((p.tstate.model, ts.model),
+                       (p.tstate.target, ts.target)):
+        for (name, a), b in zip(net.state_dict().items(),
+                                other.state_dict().values()):
+            assert torch.equal(a, b), name
+    counts = p.graph.kernel_counts(("union_gather_kernel",
+                                    "window_gather_kernel"),
+                                   str(tmp_path / "graph.dot"))
+    updates = p.S * p.K
+    assert counts == {"union_gather_kernel": 0 if algo == "r2d2" else updates,
+                      "window_gather_kernel": updates}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [
+    [(16, 4, 3, 3), (16,), (128, 1024), (128,), (256, 128), (256,), (1, 256),
+     (1,), (256, 128), (256,), (3, 256), (3,)],                 # MinAtar net
+    [(32, 4, 8, 8), (32,), (64, 32, 4, 4), (64,), (64, 64, 3, 3), (64,),
+     (512, 3136), (512,), (256, 512), (256,), (1, 256), (1,), (256, 512),
+     (256,), (6, 256), (6,)]])                                  # Nature CNN
+def test_global_norm_ignores_the_gradients_layout(cuda_device, shapes):
+    """The grad norm over a mesh's gradients (views of one flat buffer,
+    most of them unaligned) equals the norm over the same values as
+    separate tensors, contiguous or with the weights transposed, bit for
+    bit, over 200 draws (a foreach norm of the gradients themselves
+    parts them)."""
+    from rltime_tpu_torch.training.learner import _global_norm
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(200):
+        grads = [0.01 * torch.randn(s, generator=g, device=cuda_device)
+                 for s in shapes]
+        transposed = [x.t().contiguous().t() if x.dim() == 2 else x
+                      for x in grads]
+        flat = torch.cat([x.reshape(-1) for x in grads])
+        views = [part.view_as(x) for part, x in zip(
+            flat.split([x.numel() for x in grads]), grads)]
+        norm = _global_norm(grads)
+        assert torch.equal(norm, _global_norm(views))
+        assert torch.equal(norm, _global_norm(transposed))

@@ -35,19 +35,39 @@ Phases (any failure exits non-zero and prints no result line):
      `minatar_breakout_dqn` at full width (E=256, T=512, MinAtar CNN,
      dueling, batch 256, n=3, L=32, 64 updates per chunk, S=4) for
      81,920 env steps: 2 warm chunks, then 2 dispatches of 4 supersteps,
-     512 learner updates. Counted as phase 3 is: one window_gather
-     launch per update serves the three n-step strips, the action and
-     the two frame_stack=1 observations. The
-     checkpoint is read back into a second trainer. Then one warm
-     dispatch under torch.cuda.set_sync_debug_mode("error") (a host
-     sync fails the run), 3 more timed by the host clock, and one
-     superstep under torch.profiler for the device-busy share;
+     512 learner updates, the first two supersteps op by op, the third
+     capturing one superstep into a CUDA graph and every later one a
+     replay of it. Counted as phase 3 is, through the graph: the Python
+     wrappers ran in the two eager supersteps and the capture only, and
+     the graph holds one window_gather kernel node per update (64;
+     counted from its Graphviz dump), so the run launched 2 x 64 + 64 x
+     replays = one per update; it serves the three n-step strips, the
+     action and the two frame_stack=1 observations. The device cursor and
+     counter agree with the host's. The checkpoint is read back into a
+     second trainer. Then one dispatch (4 replays) under
+     torch.cuda.set_sync_debug_mode("error") (a host sync fails the
+     run), 3 more timed by the host clock beside the same trainer op by
+     op (`capture=False`), the act + insert program alone, and one
+     replayed superstep under torch.profiler for the device-busy share;
   6. the same trainer at bench.py's fused shape (L=128, 256 updates per
-     chunk, S=1, warmup 0): 2 warm + 6 timed dispatches, env-steps/s;
-  7. the first full-width dispatch of `minatar_breakout_iqn`,
-     `minatar_breakout_r2d2` (one window_gather launch per update: the
-     frame sequence, its done window, three strips, the carry) and
-     `minatar_seaquest_dqn`, through the same entry point;
+     chunk, S=1, warmup 0) through `bench.bench_minatar_fused`: captured
+     (5 windows of 2 replayed dispatches, a profiled replay) and op by
+     op, env-steps/s and the device-busy share;
+  7. the first full-width dispatches of `minatar_breakout_iqn`,
+     `minatar_breakout_r2d2` (one window_gather node per update, 8 in
+     its graph: the frame sequence, its done window, three strips, the
+     carry) and `minatar_seaquest_dqn`, through the same entry point,
+     captured and counted as phase 5 is;
+ 15. (run right after phase 7) the graph against the eager body under
+     cudnn.deterministic, at the full width of `minatar_breakout_dqn`
+     (chunked), `minatar_breakout_iqn` with actor-side priorities,
+     `minatar_breakout_r2d2` and `minatar_breakout_dqn` interleaved:
+     after the capture, one replayed superstep against the eager body
+     run from clones of the same states on the same epsilons and beta:
+     parameters, target, optimizer moments and steps, counter, rings,
+     tree, max_priority, cursor, the actor's env state, carry and stat
+     rings, the learner's, envs' and actor's generator states and the
+     metrics, max abs difference 0;
   8. small-input checks that one learner update of each path and of
      each option (RMSProp, the sum tree, uniform replay, Q(lambda),
      NHWC + space-to-depth), one fused superstep on injected draws
@@ -69,8 +89,9 @@ Phases (any failure exits non-zero and prints no result line):
      and `--best`;
  11. the fused trainer with `train.interleave_updates` and actor-side
      priorities on `minatar_breakout_dqn`, and `minatar_breakout_iqn`
-     with priorities on the sum tree: a warm dispatch of each under
-     set_sync_debug_mode("error"), then timed dispatches of the first;
+     with priorities on the sum tree, each captured (its graph counted
+     as phase 5's): a replayed superstep of each under
+     set_sync_debug_mode("error"), then timed replays of the first;
  12. distribution, on a one-rank NCCL group: both kernels held bit-exact
      against their plain versions at the shapes the config-#5 update
      gives them (one rank's 32 x 4096 ring of 84x84 uint8: K2's stacks at
@@ -84,10 +105,12 @@ Phases (any failure exits non-zero and prints no result line):
      all-reduce of the parameters per update, one metrics buffer and the
      max_priority MAXes, nothing else); the same updates through the
      identity mesh, bit-equal, and warm windows of both meshes in turns
-     (ABBA) with each one's device-busy time per chunk; a warm
-     `minatar_breakout_dqn` dispatch through the NCCL mesh under
-     set_sync_debug_mode("error"), bit-equal to the same dispatch without
-     a mesh; `pong_dqn_counting` with `train.async_acting` beside the
+     (ABBA) with each one's device-busy time per chunk; the
+     `minatar_breakout_dqn` fused trainer through the NCCL mesh,
+     captured with its all-reduces: a replayed superstep under
+     set_sync_debug_mode("error"), its collectives counted by the census
+     (64 gradient all-reduces), bit-equal to the same replay without a
+     mesh; `pong_dqn_counting` with `train.async_acting` beside the
      synchronous trainer; and `python -m rltime_tpu_torch.train_distributed`
      on one rank in a subprocess;
  14. (run right after phase 7) the captured route's capturable Adam
@@ -1002,28 +1025,68 @@ def phase_steady_state(trainer, smi: str, chunks: int, profiled: int):
         print(f"  device {ms:9.4f} ms/chunk  {name[:110]}", flush=True)
 
 
+def graph_launches(trainer, tag: str, wrapper: dict) -> dict:
+    """The gather kernels a captured fused trainer launched since the
+    counters were zeroed before its first superstep: the Python
+    wrappers' counts (`wrapper`) cover the eager warm-up supersteps and
+    the capturing pass, which records the kernels into the graph
+    without launching them; each replay launches the graph's kernel
+    nodes (counted from its Graphviz dump). Checks one window_gather node
+    per update of a superstep, no union_gather, and that the wrappers ran
+    in the warm-ups and the capture only. Returns (launches, nodes)."""
+    from rltime_tpu_torch.utils.graphs import GraphedStep
+    g = trainer.graph
+    check(g is not None and g.graph is not None,
+          f"{tag}: the fused trainer on the card has no captured graph")
+    dot = ROOT / "results" / f"chip_smoke_graph_fused_{tag}.dot"
+    dot.parent.mkdir(parents=True, exist_ok=True)
+    counts = g.kernel_counts(BENCH_KERNELS, str(dot))
+    nodes = {"union_gather": counts["union_gather_kernel"],
+             "window_gather": counts["window_gather_kernel"]}
+    k = trainer.loop_cfg.updates_per_chunk
+    check(nodes == {"union_gather": 0, "window_gather": k},
+          f"{tag}: graph kernel nodes {nodes}, expected {k} window_gather "
+          "(one per update of a superstep) and no union_gather")
+    passes = GraphedStep.WARMUP + 1
+    check(wrapper == {"union_gather": 0, "window_gather": passes * k},
+          f"{tag}: wrapper launches {wrapper}, expected {passes} x {k} "
+          "(the eager warm-ups and the capture; none in a replay)")
+    # the capturing pass ran the wrappers once per node, launching nothing
+    launches = {name: wrapper[name] - n + n * g.replays
+                for name, n in nodes.items()}
+    return launches, nodes
+
+
 def run_fused_path(path: dict):
     """Drive one fused preset through the CLI's entry point on the card
     at full width, the launch counters zeroed just before and read just
-    after; check what every fused path must show. Returns (trainer,
-    launches, run seconds)."""
+    after, every trained superstep after the eager warm-ups a replay of
+    the captured graph (`GraphedStep.debug` on, to count its kernel
+    nodes); check what every fused path must show. Returns (trainer,
+    launches: the kernels' launches in the run, eager and replayed,
+    nodes: the graph's kernel nodes)."""
     import torch
     from rltime_tpu_torch import train
     from rltime_tpu_torch.ops import gather
     from rltime_tpu_torch.parallel.fused import FusedApexTrainer
     from rltime_tpu_torch.training import checkpoint as ckpt_lib
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     tag = path["preset"]
     result_dir = ROOT / "results" / f"chip_smoke_{tag}"
     shutil.rmtree(result_dir, ignore_errors=True)
     argv = [tag, "--device", "cuda", "--result-dir", str(result_dir),
             f"--train.total_env_steps={path['steps']}"]
     torch.cuda.reset_peak_memory_stats()
+    GraphedStep.debug = True            # keep the graph to count its nodes
     gather.reset_counts()
     t0 = time.perf_counter()
-    trainer = train.run(argv)
-    torch.cuda.synchronize()
+    try:
+        trainer = train.run(argv)
+        torch.cuda.synchronize()
+    finally:
+        GraphedStep.debug = False
     wall = time.perf_counter() - t0
-    launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+    wrapper, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(isinstance(trainer, FusedApexTrainer)
@@ -1036,10 +1099,17 @@ def run_fused_path(path: dict):
           f"{tag}: {trainer.updates_done} updates, expected {n_upd}")
     check(not any(plain.values()), f"{tag}: plain calls on the CUDA path "
           f"{plain}")
+    launches, nodes = graph_launches(trainer, tag, wrapper)
     check(launches == {"window_gather": path["k1"] * n_upd,
                        "union_gather": 0},
-          f"{tag}: launches {launches}, expected {path['k1']} window_gather "
-          f"per update x {n_upd} updates and no union_gather")
+          f"{tag}: launches {launches} (eager warm-ups + {nodes} nodes x "
+          f"{trainer.graph.replays} replays), expected {path['k1']} "
+          f"window_gather per update x {n_upd} updates and no union_gather")
+    check(trainer.replay_state.cursor.item() == trainer.replay_state.t
+          and trainer.train_state.counter.item() == n_upd,
+          f"{tag}: device cursor {trainer.replay_state.cursor.item()} / "
+          f"counter {trainer.train_state.counter.item()} against the host's "
+          f"{trainer.replay_state.t} / {n_upd}")
     m = trainer.last_metrics
     for k in ("loss", "grad_norm", "td_abs", "q"):
         check(math.isfinite(m[k].item()), f"{tag}: last {k} = {m[k].item()}")
@@ -1071,8 +1141,10 @@ def run_fused_path(path: dict):
           and (result_dir / "checkpoints" / str(step) / "state.pt").is_file(),
           f"{tag}: checkpoint missing (latest step {step})")
     print(f"{tag}: {path['steps']} env steps, {n_upd} updates in "
-          f"{wall:.2f} s (setup, warmup and the checkpoint included), "
-          f"launches {launches}, plain calls {plain}; last loss "
+          f"{wall:.2f} s (setup, warmup, the capture and the checkpoint "
+          f"included), launches {launches} ({GraphedStep.WARMUP} eager "
+          f"supersteps, then graph kernel nodes {nodes} x "
+          f"{trainer.graph.replays} replays), plain calls {plain}; last loss "
           f"{m['loss'].item():.6g} grad_norm {m['grad_norm'].item():.6g} "
           f"td_abs {m['td_abs'].item():.6g} q {m['q'].item():.6g}; "
           f"{n_eps} episodes completed, mean return of the last "
@@ -1080,15 +1152,18 @@ def run_fused_path(path: dict):
           f"leaves, "
           f"{int(moved.sum())} off max-priority; peak device memory "
           f"{peak_gb:.3f} GB", flush=True)
-    return trainer, launches
+    return trainer, launches, nodes
 
 
 def phase_fused_path(smi: str):
-    """Phase 5: the counted run, the checkpoint read back, the no-sync
-    dispatch, the warm rates and the profiled superstep."""
+    """Phase 5: the counted run (captured), the checkpoint read back, the
+    no-sync replayed dispatch, the warm rates captured and op by op, and
+    the profiled replay. Returns (launches, graph nodes)."""
     import torch
+    from rltime_tpu_torch.acting.device_actor import eps_schedule
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
     from rltime_tpu_torch.parallel.fused import FusedApexTrainer
-    trainer, launches = run_fused_path(FUSED_PATH)
+    trainer, launches, nodes = run_fused_path(FUSED_PATH)
     mc, ac, lc = trainer.model_cfg, trainer.algo_cfg, trainer.loop_cfg
     check(mc.torso == "minatar_cnn" and mc.head == "dueling"
           and (ac.batch_size, ac.n_step) == (256, 3)
@@ -1101,7 +1176,8 @@ def phase_fused_path(smi: str):
     cfg["train"]["resume"] = True
     again = FusedApexTrainer(cfg, trainer.result_dir, device="cuda")
     check(again.env_steps == trainer.env_steps
-          and again.updates_done == trainer.updates_done,
+          and again.updates_done == trainer.updates_done
+          and again.train_state.counter.item() == trainer.updates_done,
           "resumed trainer's counters differ")
     for (k, a), b in zip(trainer.train_state.model.state_dict().items(),
                          again.train_state.model.state_dict().values()):
@@ -1114,32 +1190,46 @@ def phase_fused_path(smi: str):
     print("checkpoint read back: learner, counters and actor state equal",
           flush=True)
 
-    # one warm dispatch during which any host sync raises
+    # one warm dispatch (4 replays) during which any host sync raises
+    replays = trainer.graph.replays
     torch.cuda.set_sync_debug_mode("error")
     try:
         trainer.superstep()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print("no-sync check: one warm dispatch (4 supersteps) ran under "
+    check(trainer.graph.replays == replays + trainer.supersteps,
+          "the no-sync dispatch was not 4 replays")
+    print("no-sync check: one warm dispatch (4 graph replays) ran under "
           "set_sync_debug_mode('error')", flush=True)
 
-    dispatches = 3
     S, L, E = trainer.supersteps, lc.chunk_len, trainer.num_envs
-    t0 = time.perf_counter()
-    for _ in range(dispatches):
-        trainer.superstep()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    steps = dispatches * S * L * E
-    n_upd = dispatches * S * lc.updates_per_chunk
-    super_ms = wall / (dispatches * S) * 1e3
-    print(f"steady state fused ({dispatches} warm dispatches of {S} "
-          f"supersteps): {steps / wall:.1f} env-steps/s, {n_upd / wall:.2f} "
-          f"updates/s, {super_ms:.2f} ms/superstep  [{smi}]", flush=True)
-    # the act phase alone: warm act + insert chunks (no updates), so
-    # the superstep's time splits into acting and the 64 updates
-    from rltime_tpu_torch.acting.device_actor import eps_schedule
+    rates = fused_rates(trainer, dispatches=3)
+    super_ms = rates["ms_per_superstep"]
+    # the same trainer op by op: its own warm chunks, one dispatch to
+    # warm, two timed
+    eager_dir = ROOT / "results" / "chip_smoke_fused_eager"
+    shutil.rmtree(eager_dir, ignore_errors=True)
+    cfg = apply_overrides(load_config(FUSED_PATH["preset"]), [
+        "train.total_env_steps=1000000000", "train.log_interval=1000000000"])
+    eager = FusedApexTrainer(cfg, str(eager_dir), device="cuda",
+                             capture=False)
+    while eager.updates_done == 0:
+        eager.superstep()
+    eager_rates = fused_rates(eager, dispatches=2)
+    eager.logger.close()
+    del eager
+    print(f"steady state fused, captured ({rates['dispatches']} warm "
+          f"dispatches of {S} supersteps): {rates['env_steps_per_s']:.1f} "
+          f"env-steps/s, {rates['updates_per_s']:.2f} updates/s, "
+          f"{super_ms:.2f} ms/superstep; op by op (capture=False, "
+          f"{eager_rates['dispatches']} dispatches): "
+          f"{eager_rates['env_steps_per_s']:.1f} env-steps/s, "
+          f"{eager_rates['ms_per_superstep']:.2f} ms/superstep; "
+          f"{eager_rates['ms_per_superstep'] / super_ms:.2f}x  [{smi}]",
+          flush=True)
+    # the act phase alone: warm act + insert chunks (no updates, op by
+    # op), so the superstep's time splits into acting and the 64 updates
     chunks = 4
     t0 = time.perf_counter()
     for _ in range(chunks):
@@ -1147,65 +1237,81 @@ def phase_fused_path(smi: str):
                            trainer.device)
         trainer._warm_super(trainer.train_state.model, trainer.actor_state,
                             trainer.replay_state, eps)
+        trainer.replay_state.t += L
+        trainer.env_steps += L * E
     torch.cuda.synchronize()
     act_ms = (time.perf_counter() - t0) / chunks * 1e3
-    print(f"  act + insert alone ({chunks} chunks of {L} steps): "
-          f"{act_ms:.2f} ms/chunk ({act_ms / L:.3f} ms/step), leaving "
-          f"{(super_ms - act_ms) / lc.updates_per_chunk:.3f} ms for each of "
-          f"the {lc.updates_per_chunk} updates of a superstep", flush=True)
-    trainer.supersteps = 1              # profile ONE superstep
+    print(f"  act + insert alone, op by op ({chunks} chunks of {L} steps): "
+          f"{act_ms:.2f} ms/chunk ({act_ms / L:.3f} ms/step)", flush=True)
+    check(trainer.replay_state.cursor.item() == trainer.replay_state.t,
+          "the warm program's cursor and the host's differ")
+    trainer.supersteps = 1              # profile ONE superstep (a replay)
     p_wall, busy_ms, per_name = device_profile(trainer.superstep)
     trainer.supersteps = S
-    print(f"  profiled (1 more superstep): device busy {busy_ms:.3f} "
-          f"ms/superstep, {busy_ms / super_ms:.1%} of the unprofiled "
-          f"superstep time ({busy_ms / 1e3 / p_wall:.1%} of the profiled "
-          f"{p_wall:.3f} s)", flush=True)
+    print(f"  profiled (1 more superstep, one replay): device busy "
+          f"{busy_ms:.3f} ms/superstep, {busy_ms / super_ms:.1%} of the "
+          f"unprofiled superstep time ({busy_ms / 1e3 / p_wall:.1%} of the "
+          f"profiled {p_wall * 1e3:.3f} ms)  [{smi}]", flush=True)
     k1_ms = sum(v for name, v in per_name.items() if "window_gather" in name)
     print(f"  window_gather kernel: {k1_ms:.4f} ms/superstep of "
           f"{busy_ms:.4f} ms/superstep device busy", flush=True)
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  device {ms:9.4f} ms/superstep  {name[:110]}", flush=True)
-    return launches
+    return launches, nodes
+
+
+def fused_rates(trainer, dispatches: int) -> dict:
+    """Host-clock rates of `dispatches` warm dispatches ending in a
+    synchronise."""
+    import torch
+    lc = trainer.loop_cfg
+    torch.cuda.synchronize()
+    s0, u0 = trainer.env_steps, trainer.updates_done
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        trainer.superstep()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = dispatches * trainer.supersteps
+    check(trainer.env_steps - s0 == n * lc.chunk_len * trainer.e_global,
+          "fused_rates: the dispatches were warmup chunks")
+    return {"dispatches": dispatches,
+            "env_steps_per_s": (trainer.env_steps - s0) / wall,
+            "updates_per_s": (trainer.updates_done - u0) / wall,
+            "ms_per_superstep": wall / n * 1e3}
 
 
 def phase_fused_bench_shape(smi: str):
     """Phase 6: the fused trainer at bench.py's shape (the JAX package's
-    `_bench_minatar_fused`): 2 warm + 6 timed dispatches."""
-    import torch
-    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    `_bench_minatar_fused`: L=128, 256 updates a chunk, S=1, warmup 0)
+    through `bench.bench_minatar_fused`, captured (the eager warm-ups and
+    the capture, then 5 windows of 2 replayed dispatches and a profiled
+    one) and op by op."""
+    from rltime_tpu_torch import bench
     from rltime_tpu_torch.ops import gather
-    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
-    cfg = apply_overrides(load_config(FUSED_PATH["preset"]), [
-        "train.chunk_len=128", "train.updates_per_chunk=256",
-        "train.supersteps_per_dispatch=1", "train.warmup_env_steps=0",
-        "train.total_env_steps=1000000000", "train.log_interval=1000000000"])
-    result_dir = ROOT / "results" / "chip_smoke_fused_bench_shape"
-    shutil.rmtree(result_dir, ignore_errors=True)
-    trainer = FusedApexTrainer(cfg, str(result_dir), device="cuda")
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     gather.reset_counts()
-    for _ in range(2):                  # warm; fills the replay too
-        m = trainer.superstep()
-    m["loss"].item()
-    dispatches = 6
-    s0 = trainer.env_steps
-    t0 = time.perf_counter()
-    for _ in range(dispatches):
-        m = trainer.superstep()
-    loss = m["loss"].item()             # waits for the device
-    wall = time.perf_counter() - t0
-    steps = trainer.env_steps - s0
-    check(math.isfinite(loss), f"bench shape: loss {loss}")
-    check(steps == dispatches * 128 * 256, f"bench shape: {steps} env steps")
-    check(gather.LAUNCHES["window_gather"] == 256 * (2 + dispatches)
+    res = bench.bench_minatar_fused()
+    passes = GraphedStep.WARMUP + 1
+    check(gather.LAUNCHES == {"union_gather": 0, "window_gather": 256 * passes}
           and not any(gather.PLAIN_CALLS.values()),
-          f"bench shape: launches {gather.LAUNCHES}, plain "
-          f"{gather.PLAIN_CALLS}")
+          f"bench shape: wrapper launches {gather.LAUNCHES} (expected the "
+          f"{passes} passes before the replays), plain {gather.PLAIN_CALLS}")
+    res.update(bench.bench_minatar_fused(capture=False))
+    for k in ("minatar_env_steps_per_s", "minatar_env_steps_per_s_eager"):
+        check(res[k] > 0, f"bench shape: {k} = {res[k]}")
     print(f"fused bench shape (L=128, 256 updates per chunk, S=1, batch 256, "
-          f"256 lanes; {dispatches} timed dispatches after 2 warm): "
-          f"{steps / wall:.1f} env-steps/s, "
-          f"{dispatches * 256 / wall:.2f} updates/s, "
-          f"{wall / dispatches * 1e3:.1f} ms/dispatch, last loss {loss:.6g}"
-          f"  [{smi}]", flush=True)
+          f"256 lanes; {bench.WINDOWS} windows of {bench.MINATAR_DISPATCHES} "
+          f"dispatches): captured {res['minatar_env_steps_per_s']:.1f} "
+          f"env-steps/s (windows "
+          f"{[round(x, 1) for x in res['minatar_env_steps_per_s_windows']]}), "
+          f"op by op {res['minatar_env_steps_per_s_eager']:.1f} (windows "
+          f"{[round(x, 1) for x in res['minatar_env_steps_per_s_eager_windows']]}"
+          f"); a profiled replay: device busy "
+          f"{res['minatar_device_busy_ms_per_dispatch']:.3f} of "
+          f"{res['minatar_profiled_dispatch_ms']:.3f} ms "
+          f"({res['minatar_device_busy_share']:.1%}; an unprofiled dispatch "
+          f"{res['minatar_ms_per_dispatch']:.3f} ms)  [{smi}]", flush=True)
 
 
 # phase 14's other legs: the JAX bench's IQN (iqn_b1024_k1) and R2D2
@@ -1408,10 +1514,13 @@ def phase_bench_superstep(smi: str) -> dict:
     return by_path
 
 
-def phase_fused_others():
-    """Phase 7: the first full-width dispatch of the other fused paths."""
+def phase_fused_others() -> dict:
+    """Phase 7: the first full-width dispatches of the other fused paths,
+    captured. Returns each path's (launches, graph nodes)."""
+    out = {}
     for path in FUSED_OTHERS:
-        trainer, _ = run_fused_path(path)
+        trainer, launches, nodes = run_fused_path(path)
+        out[path["preset"]] = (launches, nodes)
         mc, ac = trainer.model_cfg, trainer.algo_cfg
         if path["preset"].endswith("iqn"):
             check(mc.is_iqn and ac.algo == "iqn", f"not IQN: {mc} {ac}")
@@ -1422,6 +1531,81 @@ def phase_fused_others():
             check(ring.shape == (256, 512, 128) and bool(ring.abs().sum() > 0),
                   f"rnn_h ring {ring.shape} empty")
         del trainer
+    return out
+
+
+# phase 15: the graph against the eager body, at each preset's full width
+FUSED_GRAPH_CASES = (
+    ("minatar_breakout_dqn", "chunked DQN", []),
+    ("minatar_breakout_iqn", "IQN + actor-side priorities",
+     ["replay.use_inserted_priorities=true"]),
+    ("minatar_breakout_r2d2", "R2D2", []),
+    ("minatar_breakout_dqn", "interleaved", ["train.interleave_updates=true"]),
+)
+
+
+def phase_fused_graph_parity(smi: str):
+    """Phase 15: for chunked DQN, IQN (with actor-side priorities, so the
+    post-chunk forward draws its taus), R2D2 and the interleaved
+    superstep at their presets' full width, under cudnn.deterministic:
+    the trainer captures its graph (two eager supersteps, then the
+    capture), then one more superstep, a replay, is held against the
+    eager body run from clones of the same states on the same epsilons
+    and beta: parameters, target, optimizer moments and step counts,
+    the update counter, rings, tree, max_priority, cursor, the actor's
+    env state, carry, stat rings and the learner's, envs' and actor's
+    generator states, and the metrics. Tolerance 0."""
+    import torch
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer, state_diffs
+    from rltime_tpu_torch.utils import benchprog
+    t_phase = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        for preset, what, extra in FUSED_GRAPH_CASES:
+            cfg = apply_overrides(load_config(preset), extra + [
+                "train.supersteps_per_dispatch=1",
+                "train.total_env_steps=1000000000",
+                "train.log_interval=1000000000"])
+            d = ROOT / "results" / f"chip_smoke_graph_parity_{preset}"
+            shutil.rmtree(d, ignore_errors=True)
+            t = FusedApexTrainer(cfg, str(d), device="cuda")
+            while t.graph.graph is None:
+                t.superstep()
+            eps, beta = t._eps(t.loop_cfg.chunk_len), t._betas(1)[0]
+            ts, rs = benchprog.clone_states(t.train_state, t.replay_state)
+            clone = (ts, t.actor_state.clone(), rs)
+            gather.reset_counts()
+            m = t.superstep()
+            check(not any(gather.LAUNCHES.values()),
+                  f"{what}: a replay ran a wrapper: {gather.LAUNCHES}")
+            me = t.eager_superstep(*clone, eps, beta)
+            torch.cuda.synchronize()
+            diffs = state_diffs((t.train_state, t.actor_state,
+                                 t.replay_state), clone)
+            diffs.update({f"metric {k}": (v.double() - me[k].double())
+                          .abs().max().item() for k, v in m.items()})
+            worst = max(diffs.values())
+            check(worst == 0.0, f"{what}: graph vs eager, max abs "
+                  f"difference {worst} "
+                  f"({ {k: v for k, v in diffs.items() if v} })")
+            print(f"graph vs eager ({preset}, {what}, "
+                  f"{t.loop_cfg.updates_per_chunk} updates a superstep): one "
+                  f"replay == the eager body from clones over {len(diffs)} "
+                  f"tensors and generator states (cursor "
+                  f"{t.replay_state.cursor.item()}, counter "
+                  f"{t.train_state.counter.item()}): max abs difference "
+                  f"{worst}", flush=True)
+            t.logger.close()
+            del t, ts, rs, clone, m, me
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic = deterministic
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s  [{smi}]",
+          flush=True)
 
 
 def _chunks(rng, E, L, obs_shape, num_actions, lstm_size=0, n=6):
@@ -1593,7 +1777,9 @@ def phase_fused_parity(devices=("cpu", "cuda"), interleave=False):
         result_dir = (ROOT / "results" / f"chip_smoke_fused_parity_{dev}"
                       f"{'_interleaved' if interleave else ''}")
         shutil.rmtree(result_dir, ignore_errors=True)
-        t = FusedApexTrainer(cfg, str(result_dir), device=dev)
+        # injected draws: the body op by op (a graph draws its own)
+        t = FusedApexTrainer(cfg, str(result_dir), device=dev,
+                             capture=False)
         if draws is None:       # drawn once, on the CPU
             reset = t.env.reset_draws(E, g, "cpu")
             draws = dict(
@@ -1770,12 +1956,13 @@ def phase_cartpole():
 
 
 def phase_fused_options(smi: str):
-    """Phase 11: the fused trainer's options, each with a warm dispatch
-    during which any host sync raises."""
+    """Phase 11: the fused trainer's options, each captured, with a
+    replayed superstep during which any host sync raises."""
     import torch
     from rltime_tpu_torch.config.config import apply_overrides, load_config
     from rltime_tpu_torch.ops import gather
     from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     common = ["replay.use_inserted_priorities=true",
               "train.total_env_steps=1000000000",
               "train.log_interval=1000000000"]
@@ -1794,29 +1981,37 @@ def phase_fused_options(smi: str):
                                                else lc.chunk_len),
               f"{what}: replay chunk_len {trainer.replay_cfg.chunk_len}")
         gather.reset_counts()
-        while trainer.updates_done < 2 * lc.updates_per_chunk:
-            m = trainer.superstep()         # warmup, then two supersteps
+        GraphedStep.debug = True
+        try:
+            # warmup, the two eager supersteps, the capture
+            while trainer.graph.graph is None:
+                m = trainer.superstep()
+        finally:
+            GraphedStep.debug = False
         torch.cuda.set_sync_debug_mode("error")
         try:
-            m = trainer.superstep()
+            m = trainer.superstep()         # a replay
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         loss = m["loss"].item()
         check(math.isfinite(loss), f"{what}: loss {loss}")
-        check(gather.LAUNCHES == {"union_gather": 0,
-                                  "window_gather": trainer.updates_done}
-              and not any(gather.PLAIN_CALLS.values()),
-              f"{what}: launches {gather.LAUNCHES} in {trainer.updates_done} "
-              f"updates, plain {gather.PLAIN_CALLS}")
+        check(not any(gather.PLAIN_CALLS.values()),
+              f"{what}: plain calls {gather.PLAIN_CALLS}")
+        launches, nodes = graph_launches(trainer, f"{preset}_options",
+                                         dict(gather.LAUNCHES))
+        check(launches == {"union_gather": 0,
+                           "window_gather": trainer.updates_done},
+              f"{what}: launches {launches} in {trainer.updates_done} "
+              "updates")
         rs = trainer.replay_state
         check(bool(rs.storage["priority"][:, :min(rs.t, 512)].sum() > 0)
               and rs.t == trainer.env_steps // trainer.num_envs,
               f"{what}: priorities or cursor wrong (t = {rs.t})")
-        print(f"no-sync check ({preset}, {what}): one warm superstep ran "
-              f"under set_sync_debug_mode('error'); {trainer.updates_done} "
-              f"updates, one window_gather each; last loss {loss:.6g}",
-              flush=True)
+        print(f"no-sync check ({preset}, {what}): one replayed superstep "
+              f"ran under set_sync_debug_mode('error'); {trainer.updates_done} "
+              f"updates, one window_gather each (graph kernel nodes "
+              f"{nodes}); last loss {loss:.6g}", flush=True)
         if timed:
             L, E = lc.chunk_len, trainer.num_envs
             t0 = time.perf_counter()
@@ -2056,8 +2251,9 @@ def phase_distribution(smi: str):
         del tr, ref
         torch.cuda.empty_cache()
 
-        # 3) a warm fused dispatch through the NCCL mesh, no host sync,
-        # bit-equal to the same dispatch without a mesh
+        # 3) the fused trainer through the NCCL mesh, captured with its
+        # all-reduces: a replayed superstep with no host sync, counted by
+        # the census, bit-equal to the same superstep without a mesh
         fcfg = apply_overrides(load_config(FUSED_PATH["preset"]), [
             "train.supersteps_per_dispatch=1", "train.warmup_env_steps=8193",
             "train.total_env_steps=1000000000",
@@ -2067,31 +2263,34 @@ def phase_distribution(smi: str):
             d = ROOT / "results" / f"chip_smoke_fused_{tag}"
             shutil.rmtree(d, ignore_errors=True)
             ft = FusedApexTrainer(fcfg, str(d), device=dev, mesh=m)
-            ft.superstep()                       # warm chunk
-            ft.superstep()                       # first trained superstep
+            # the warm chunk, two eager supersteps, the capture
+            while ft.graph.graph is None:
+                ft.superstep()
             torch.cuda.synchronize()
             census.reset_counts()
             if tag == "nccl":
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                mm = ft.superstep()
+                mm = ft.superstep()              # a replay
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             runs.append((ft, mm, census.entries()))
         (a, ma, ents), (b, mb, ents_b) = runs
-        check(a.updates_done == b.updates_done == 128
+        check(a.updates_done == b.updates_done == 4 * 64
+              and a.graph.replays == b.graph.replays == 2
               and _state_equal(a.train_state.model.state_dict(),
                                b.train_state.model.state_dict())
               and torch.equal(a.replay_state.tree, b.replay_state.tree)
               and all(torch.equal(ma[k], mb[k]) for k in ma),
-              "fused: the NCCL dispatch and the dispatch without a mesh "
-              "differ")
+              "fused: the NCCL replay and the replay without a mesh differ")
         check(sum(e["count"] for e in ents if e["site"] == "grad") == 64
               and not ents_b, f"fused census {ents} / {ents_b}")
-        print(f"fused on the NCCL mesh: one warm dispatch (64 updates, "
-              f"{sum(e['count'] for e in ents)} collectives) ran under "
-              "set_sync_debug_mode('error'), bit-equal to the dispatch "
+        print(f"fused on the NCCL mesh, captured: one replayed superstep (64 "
+              f"updates, {sum(e['count'] for e in ents)} collectives by the "
+              "census: " + "; ".join(f"{e['count']} x {e['op']} {e['site']}"
+                                     for e in ents) + ") ran under "
+              "set_sync_debug_mode('error'), bit-equal to the replay "
               "without a mesh", flush=True)
         for ft, _, _ in runs:
             ft.logger.close()
@@ -2362,9 +2561,10 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     native_launches = phase_atari_native(smi)
-    fused_launches = phase_fused_path(smi)
+    fused_launches, fused_nodes = phase_fused_path(smi)
     phase_fused_bench_shape(smi)
-    phase_fused_others()
+    fused_others = phase_fused_others()
+    phase_fused_graph_parity(smi)
     torch.cuda.empty_cache()
     bench_launches = phase_bench_superstep(smi)
     phase_small_parity()
@@ -2410,6 +2610,11 @@ def main() -> int:
         return {DQN_PATH["preset"]: dqn_launches[name],
                 R2D2_PATH["preset"]: r2d2_launches[name],
                 FUSED_PATH["preset"]: fused_launches[name],
+                f"{FUSED_PATH['preset']} (graph nodes per replay)":
+                    fused_nodes[name],
+                **{tag: n[name] for tag, (n, _) in fused_others.items()},
+                **{f"{tag} (graph nodes per replay)": n[name]
+                   for tag, (_, n) in fused_others.items()},
                 DQN_OPTIONS_PATH["tag"]: option_launches[name],
                 DQN_LAMBDA_PATH["tag"]: lambda_launches[name],
                 APEX_PATH["preset"]: apex_launches[name],

@@ -14,10 +14,18 @@ is read back until `episode_stats`.
 superstep (`parallel/fused.py`); both start from
 `init_device_actor_state`, so the two paths agree bit for bit.
 
-Randomness: the state carries two generators where the JAX state
-carries keys, one for the env's draws and one for the actor's (explore
-uniforms, random actions, IQN acting taus). `rollout(..., draws=...)`
-takes the same draws as tensors instead (tests).
+Randomness: the state carries generators where the JAX state carries
+keys: one for the env's draws, one for the actor's (explore uniforms,
+random actions, IQN acting taus) and one for the IQN taus of the extra
+post-chunk forward that actor-side priorities need. `rollout(...,
+draws=...)` takes the same draws as tensors instead (tests).
+
+The rollout updates the state IN PLACE: what a step rebinds (env state,
+`done_prev`, the LSTM carry, running returns and lengths, the ring
+cursor) is copied back into the state's own tensors at the end of the
+chunk, so a CUDA graph that captured the rollout reads and writes the
+same tensors on every replay (`parallel/fused.py`), and the eager
+callers see the same state objects.
 
 Episode bookkeeping stays on the device: completed returns land in a
 fixed ring through a cumsum-offset scatter. Lanes that did not finish
@@ -35,7 +43,7 @@ import torch
 from rltime_tpu_torch.models.policy import (
     ModelConfig, QPolicy, RnnState, initial_rnn_state, q_values,
 )
-from rltime_tpu_torch.utils.prng import derived_generator, make_generator
+from rltime_tpu_torch.utils.prng import make_generator
 
 STATS_RING = 256  # last-K completed episode returns kept on the device
 
@@ -53,32 +61,59 @@ class DeviceActorState:
     ring_cursor: torch.Tensor           # () int32: completions ever
     env_generator: torch.Generator      # the env's reset/step draws
     generator: torch.Generator          # the actor's draws
+    final_generator: torch.Generator    # IQN taus of the post-chunk
+                                        # forward (actor-side priorities)
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue bit-identically."""
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         d["rnn"] = list(self.rnn) if self.rnn is not None else None
-        d["env_generator"] = self.env_generator.get_state()
-        d["generator"] = self.generator.get_state()
+        for name in _GENERATORS:
+            d[name] = getattr(self, name).get_state()
         return d
 
     def load_state_dict(self, d: Dict[str, Any]) -> None:
         for name, cur in self.env_state.items():
             cur.copy_(d["env_state"][name])
-        for name in ("done_prev", "ep_ret", "ep_len", "ret_ring", "len_ring",
-                     "ring_cursor"):
+        for name in _TENSORS:
             getattr(self, name).copy_(d[name])
         if self.rnn is not None:
             for cur, saved in zip(self.rnn, d["rnn"]):
                 cur.copy_(saved)
-        self.env_generator.set_state(d["env_generator"])
-        self.generator.set_state(d["generator"])
+        for name in _GENERATORS:
+            getattr(self, name).set_state(d[name])
+
+    def clone(self) -> "DeviceActorState":
+        """An independent copy: the tensors cloned, the generators new
+        ones at the same states."""
+        def gen(g):
+            out = torch.Generator(device=g.device)
+            out.set_state(g.get_state())
+            return out
+
+        return DeviceActorState(
+            env_state={k: v.clone() for k, v in self.env_state.items()},
+            rnn=None if self.rnn is None else tuple(
+                x.clone() for x in self.rnn),
+            **{name: getattr(self, name).clone() for name in _TENSORS},
+            **{name: gen(getattr(self, name)) for name in _GENERATORS})
+
+    def generators(self):
+        """Every generator the rollout draws from."""
+        return [getattr(self, name) for name in _GENERATORS]
+
+
+_TENSORS = ("done_prev", "ep_ret", "ep_len", "ret_ring", "len_ring",
+            "ring_cursor")
+# what a rollout step rebinds, and is copied back at the end of a chunk
+_CARRY = ("env_state", "done_prev", "rnn", "ep_ret", "ep_len", "ring_cursor")
+_GENERATORS = ("env_generator", "generator", "final_generator")
 
 
 def init_device_actor_state(env, cfg: ModelConfig, num_envs: int, seed: int,
                             device: torch.device,
                             reset_draws=None) -> DeviceActorState:
-    """Fresh envs and zeroed bookkeeping. `seed` names both generators
+    """Fresh envs and zeroed bookkeeping. `seed` names the generators
     (the env's first, as the JAX version splits its key); `reset_draws`
     injects the env's reset draws instead."""
     env_gen = make_generator(seed, "env", device)
@@ -95,7 +130,8 @@ def init_device_actor_state(env, cfg: ModelConfig, num_envs: int, seed: int,
         len_ring=torch.zeros((STATS_RING + 1,), device=device),
         ring_cursor=torch.zeros((), dtype=torch.int32, device=device),
         env_generator=env_gen,
-        generator=make_generator(seed, "act", device))
+        generator=make_generator(seed, "act", device),
+        final_generator=make_generator(seed, "final_qbest", device))
 
 
 def act_draws(cfg: ModelConfig, num_envs: int, generator: torch.Generator,
@@ -210,7 +246,7 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int,
         if cfg.is_iqn and taus is None:
             taus = torch.rand(
                 (obs.shape[0], cfg.num_tau_policy), device=obs.device,
-                generator=derived_generator(state.generator, "final_qbest"))
+                generator=state.final_generator)
         out = model(obs, rnn, taus)
         q = out[0] if cfg.recurrent else out
         return torch.max(q_values(cfg, q), dim=-1).values
@@ -218,6 +254,7 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int,
     @torch.no_grad()
     def rollout(model: QPolicy, state: DeviceActorState, eps: torch.Tensor,
                 draws: Optional[List[Dict]] = None):
+        own = {name: getattr(state, name) for name in _CARRY}
         recs = [body(model, state, eps[i], draws[i] if draws else None)
                 for i in range(L)]
         chunk = {k: torch.stack([r[k] for r in recs], dim=1)
@@ -235,9 +272,26 @@ def make_rollout_core(env, cfg: ModelConfig, chunk_len: int,
             nondone = 1.0 - chunk["done"].to(torch.float32)
             chunk["priority"] = torch.abs(
                 chunk["reward"] + gamma * nondone * q_next - q_sa)
+        _write_back(state, own)
         return state, chunk
 
     return rollout
+
+
+def _write_back(state: DeviceActorState, own: Dict[str, Any]) -> None:
+    """Copy what the chunk's steps rebound into the tensors the state
+    held before them (`own`), and rebind the state to those."""
+    for name, mine in own.items():
+        cur = getattr(state, name)
+        if isinstance(mine, dict):
+            for k, x in mine.items():
+                x.copy_(cur[k])
+        elif isinstance(mine, tuple):
+            for x, c in zip(mine, cur):
+                x.copy_(c)
+        elif mine is not None:
+            mine.copy_(cur)
+        setattr(state, name, mine)
 
 
 def pop_episode_stats(state: DeviceActorState, popped: int):

@@ -15,7 +15,10 @@
    kernels that took most of it), and the peak device memory.
 2. FULL acting + learning loop: the fused trainer (`parallel/fused.py`)
    on MinAtar Breakout at the root bench's shapes (256 lanes, L=128,
-   256 updates per chunk, one superstep per dispatch), eager.
+   256 updates per chunk, one superstep per dispatch), each superstep
+   one CUDA-graph replay after two eager supersteps and the capture;
+   beside it the same trainer with capture off (`..._eager`: the same
+   body op by op), and the device-busy share of one profiled replay.
 
 FLOPs are the root bench's analytic count (Nature-CNN convs and FCs and
 the dueling head, 5 forward-equivalents per sample); MFU is against the
@@ -161,23 +164,35 @@ def bench_learner(device: str = "cuda") -> dict:
     }
 
 
-def bench_minatar_fused(device: str = "cuda") -> dict:
+def bench_minatar_fused(device: str = "cuda", capture: bool = True) -> dict:
     """The fused MinAtar Breakout loop at the root bench's shapes:
-    2 warm dispatches, then WINDOWS windows of MINATAR_DISPATCHES."""
+    warm dispatches (the graph's eager warm-ups and its capture, or 2
+    op by op), then WINDOWS windows of MINATAR_DISPATCHES, then (when
+    captured) one more dispatch profiled. `capture=False`: the same
+    trainer op by op, its keys suffixed `_eager`."""
+    import torch
+
     from rltime_tpu_torch.config.config import apply_overrides, load_config
     from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    from rltime_tpu_torch.utils import profiling
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     # the preset holds the root bench's lanes, ring, model and algo
     cfg = apply_overrides(load_config("minatar_breakout_dqn"), [
         "train.chunk_len=128",
         "train.updates_per_chunk=256", "train.supersteps_per_dispatch=1",
         "train.warmup_env_steps=0", "train.total_env_steps=1000000000",
         "train.log_interval=1000000000"])
+    out = {}
+    suffix = "" if capture else "_eager"
     with tempfile.TemporaryDirectory() as result_dir:
-        trainer = FusedApexTrainer(cfg, result_dir, device=device)
+        trainer = FusedApexTrainer(cfg, result_dir, device=device,
+                                   capture=capture)
         if trainer.device.type != "cuda":
             raise RuntimeError("the bench measures a CUDA device, got "
                                f"{trainer.device}")
-        for _ in range(2):                  # warm; fills the replay too
+        # warm (fills the replay too); captured: the eager warm-ups and
+        # the capture
+        for _ in range(GraphedStep.WARMUP + 1 if capture else 2):
             m = trainer.superstep()
         m["loss"].item()
         rates = []
@@ -189,8 +204,25 @@ def bench_minatar_fused(device: str = "cuda") -> dict:
             m["loss"].item()
             rates.append((trainer.env_steps - s0)
                          / (time.perf_counter() - t0))
-    return {"minatar_env_steps_per_s": statistics.median(rates),
-            "minatar_env_steps_per_s_windows": rates}
+        rate = statistics.median(rates)
+        out[f"minatar_env_steps_per_s{suffix}"] = rate
+        out[f"minatar_env_steps_per_s{suffix}_windows"] = rates
+        # what the profiled dispatch below is held against: tracing
+        # slows a replay of many small kernels on the host
+        out[f"minatar_ms_per_dispatch{suffix}"] = (
+            1e3 * trainer.loop_cfg.chunk_len * trainer.e_global / rate)
+        if capture:
+            with tempfile.TemporaryDirectory() as log_dir:
+                torch.cuda.synchronize()
+                with profiling.trace(log_dir) as prof:
+                    t0 = time.perf_counter()
+                    trainer.superstep()["loss"].item()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                busy, _ = device_time(prof)
+            out.update(minatar_device_busy_ms_per_dispatch=busy,
+                       minatar_profiled_dispatch_ms=wall_ms,
+                       minatar_device_busy_share=busy / wall_ms)
+    return out
 
 
 def main(argv=None) -> dict:
@@ -204,6 +236,7 @@ def main(argv=None) -> dict:
                          f"{args.device!r}")
     learner = bench_learner(args.device)
     minatar = bench_minatar_fused(args.device)
+    minatar.update(bench_minatar_fused(args.device, capture=False))
     line = {"metric": "learner_transitions_per_s_single_gpu",
             "value": learner["learner_transitions_per_s"],
             "unit": "transitions/s", **learner, **minatar,

@@ -35,6 +35,7 @@ Invariants (held against the JAX version in tests/test_torch_replay.py):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -173,6 +174,28 @@ def replay_insert_device(cfg: ReplayConfig, state: ReplayState,
         _activate(cfg, state, col, t)
     state.cursor.add_(L)
     return state
+
+
+def replay_insert_at_cursor(cfg: ReplayConfig, state: ReplayState,
+                            chunk: Dict[str, Any]) -> ReplayState:
+    """`replay_insert_device` where the replay keeps a device cursor
+    (`state.cursor`), else `replay_insert`."""
+    insert = replay_insert if state.cursor is None else replay_insert_device
+    return insert(cfg, state, chunk)
+
+
+@contextlib.contextmanager
+def replay_in_place(state: ReplayState):
+    """Inserts and priority writes rebind `state.tree` (and, raising it,
+    `state.max_priority`) to new tensors. On leaving the block, their
+    values are copied into the tensors the state held on entering it and
+    the state is rebound to those: a CUDA graph that captured the block
+    reads and writes the same tensors on every replay."""
+    tree, max_p = state.tree, state.max_priority
+    yield state
+    tree.copy_(state.tree)
+    max_p.copy_(state.max_priority)
+    state.tree, state.max_priority = tree, max_p
 
 
 def _activate(cfg: ReplayConfig, state: ReplayState, col, t) -> None:

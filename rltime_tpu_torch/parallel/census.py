@@ -9,7 +9,9 @@ ran on ("device" or "host") and the site that asked for it ("grad",
 "metrics", "max_priority", "stats", ...). The counts are keyed, so a
 long run holds one entry per distinct collective, not one per call.
 Tests and `chip_smoke.py` zero them with `reset_counts()` before a
-step and read `entries()` after it.
+step and read `entries()` after it. A collective inside a CUDA graph is
+recorded once, while the graph is captured; its owner `add`s those
+counts again for every later replay.
 """
 from __future__ import annotations
 
@@ -22,6 +24,13 @@ COUNTS: Dict[Tuple[str, str, int, str, str], int] = {}
 def record(op: str, dtype: str, nbytes: int, group: str, site: str) -> None:
     key = (op, dtype, int(nbytes), group, site)
     COUNTS[key] = COUNTS.get(key, 0) + 1
+
+
+def add(counts: Dict[Tuple[str, str, int, str, str], int]) -> None:
+    """Add counts keyed as `COUNTS` is: what a replayed CUDA graph issued,
+    which it recorded once while it was captured."""
+    for key, n in counts.items():
+        COUNTS[key] = COUNTS.get(key, 0) + n
 
 
 def reset_counts() -> None:

@@ -11,13 +11,27 @@ the host, so one superstep is, all on the device of each rank:
   3. K learner updates (DQN/IQN feed-forward or R2D2 sequence), the
      gradients averaged over the ranks (`parallel/mesh.py`).
 
-The host enqueues these and reads nothing back: epsilon goes down once
-per dispatch, the PER exponent beta is a host float per superstep, and
-the metrics stay device scalars until the trainer logs. That is what
-will let a later change capture the superstep in a CUDA graph; here it
-runs eagerly. `supersteps_per_dispatch` S is a plain loop of S
-supersteps with a per-superstep beta, so its numbers equal S sequential
-dispatches.
+The host enqueues these and reads nothing back: epsilon and the PER
+exponent beta (one value per superstep, JAX's `betas`) go down once per
+dispatch, and the metrics stay device scalars until the trainer logs.
+What the JAX superstep's scan carries is state on the device, updated in
+place: the replay's write cursor (`ReplayState.cursor`, inserts and
+samples at it), the learner's update count (`TrainState.counter`, the
+target sync a `torch.where`), the rollout's carry and the tree.
+
+Where JAX jits the S supersteps into one program with the states
+donated, the port captures ONE superstep into a CUDA graph on the card
+(`utils/graphs.py:GraphedStep`) and a dispatch of S supersteps is S
+replays, each after copying that superstep's epsilons and beta into the
+graph's static inputs (device to device). The generators of the learner,
+the envs and the actor are registered with the graph, Adam is
+`capturable`, and a mesh's NCCL all-reduces are captured with the rest
+(the census counts each replay's). The first two supersteps run the
+body eagerly (real supersteps: cuDNN, the optimizer's state and NCCL
+warm up in them), the third captures it. The CPU runs the same body
+eagerly, and so does the transcript harness (`debug_outputs`, S = 1) on
+the card; there is no eager fallback otherwise: a capture that fails
+raises. S replays equal S sequential supersteps.
 
 This is the training path of every `configs/minatar_*.json` preset
 (`{"train": {"trainer": "fused"}}`, `train.py`). It composes the same
@@ -61,9 +75,10 @@ from rltime_tpu_torch.acting.device_actor import (
 from rltime_tpu_torch.config.config import build
 from rltime_tpu_torch.device import resolve_device
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, replay_init, replay_insert,
+    ReplayConfig, replay_in_place, replay_init, replay_insert_at_cursor,
 )
 from rltime_tpu_torch.models.policy import ModelConfig
+from rltime_tpu_torch.parallel import census
 from rltime_tpu_torch.parallel.mesh import (
     Mesh, identity_mesh, load_sidecar, make_mesh, make_sharded_insert,
     pool_process_stats, save_sidecar, shard_update,
@@ -79,6 +94,7 @@ from rltime_tpu_torch.training.r2d2 import (
 from rltime_tpu_torch.training.trainer import (
     TrainLoopConfig, _mk_model_cfg, model_in_shape, replay_fields,
 )
+from rltime_tpu_torch.utils.graphs import GraphedStep
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str
 from rltime_tpu_torch.utils.transcript import Transcript
@@ -92,9 +108,10 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
     """Build superstep(tstate, astate, rstate, eps (L, E), beta,
     draws=None) -> (tstate, astate, rstate, metrics): act L steps,
     insert the chunk, run `num_updates` learner updates. All three
-    states are updated in place. `draws` = {"act": [L rollout-step
-    draws], "update": [K update draws]} injects the random numbers
-    (tests).
+    states are updated in place, every tensor they hold kept (the tree
+    and max_priority copied back). `beta` is a float or a 0-d tensor.
+    `draws` = {"act": [L rollout-step draws], "update": [K update
+    draws]} injects the random numbers (tests).
 
     `interleave` (train.interleave_updates): ONE loop of chunk_len
     iterations, each {1 env step over all lanes + a 1-column insert +
@@ -132,9 +149,10 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
 
     def superstep(tstate, astate, rstate, eps, beta, draws=None):
         draws = draws or {}
-        astate, chunk = act(tstate.model, astate, eps, draws.get("act"))
-        tstate, rstate, metrics = insert_update(tstate, rstate, chunk, beta,
-                                                draws.get("update"))
+        with replay_in_place(rstate):
+            astate, chunk = act(tstate.model, astate, eps, draws.get("act"))
+            tstate, rstate, metrics = insert_update(
+                tstate, rstate, chunk, beta, draws.get("update"))
         if algo_cfg.debug_outputs:
             # the chunk's actions ride out for the transcript's actions
             # digest (Trainer records the same)
@@ -145,11 +163,13 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
         draws = draws or {}
         a, u, k = draws.get("act"), draws.get("update"), num_updates
         metrics = {}
-        for t in range(chunk_len):
-            astate, col = act(tstate.model, astate, eps[t:t + 1],
-                              a[t:t + 1] if a else None)
-            tstate, rstate, metrics = insert_update(
-                tstate, rstate, col, beta, u[t * k:(t + 1) * k] if u else None)
+        with replay_in_place(rstate):
+            for t in range(chunk_len):
+                astate, col = act(tstate.model, astate, eps[t:t + 1],
+                                  a[t:t + 1] if a else None)
+                tstate, rstate, metrics = insert_update(
+                    tstate, rstate, col, beta,
+                    u[t * k:(t + 1) * k] if u else None)
         return tstate, astate, rstate, metrics
 
     return superstep_interleaved if interleave else superstep
@@ -160,27 +180,63 @@ def make_warm_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                         compute_priorities: bool = False,
                         mesh: Optional[Mesh] = None):
     """Warmup program: act + insert, NO learner updates (the learner's
-    generator is untouched), as `Trainer`'s warmup chunks. Under
-    `interleave_updates` the replay has chunk_len 1 while this program
-    still ACTS chunk_len steps per dispatch: it then inserts the chunk
-    column by column. `mesh`: a MAX of `max_priority` follows."""
+    generator is untouched), as `Trainer`'s warmup chunks; in place, as
+    the superstep. Under `interleave_updates` the replay has chunk_len 1
+    while this program still ACTS chunk_len steps per dispatch: it then
+    inserts the chunk column by column. `mesh`: a MAX of `max_priority`
+    follows."""
     mesh = mesh or identity_mesh()
     act = make_rollout_core(env, model_cfg, chunk_len, compute_priorities,
                             algo_cfg.gamma)
     per_col = replay_cfg.chunk_len == 1 and chunk_len > 1
 
     def warm(model, astate, rstate, eps, draws=None):
-        astate, chunk = act(model, astate, eps, (draws or {}).get("act"))
-        if per_col:
-            for t in range(chunk_len):
-                replay_insert(replay_cfg, rstate,
-                              {k: v[:, t:t + 1] for k, v in chunk.items()})
-        else:
-            replay_insert(replay_cfg, rstate, chunk)
-        mesh.max_(rstate.max_priority, "max_priority")
+        with replay_in_place(rstate):
+            astate, chunk = act(model, astate, eps,
+                                (draws or {}).get("act"))
+            cols = ([{k: v[:, t:t + 1] for k, v in chunk.items()}
+                     for t in range(chunk_len)] if per_col else [chunk])
+            for col in cols:
+                replay_insert_at_cursor(replay_cfg, rstate, col)
+            mesh.max_(rstate.max_priority, "max_priority")
         return astate, rstate
 
     return warm
+
+
+def state_diffs(a, b) -> Dict[str, float]:
+    """Max abs difference of every tensor and generator state of two
+    (train_state, actor_state, replay_state) triples of one shape: the
+    parameters and target, the optimizer's state, the learner's update
+    counter, the rings, tree, max_priority and cursor, the actor's env
+    state, carry, running returns, stat rings (the spill slot left out)
+    and ring cursor, and the states of the learner's, the envs' and the
+    actor's generators. For the checks that hold a graph replay against
+    the eager body."""
+    def pairs(ts, ast, rs):
+        out = {f"model.{k}": v for k, v in ts.model.state_dict().items()}
+        out.update({f"target.{k}": v
+                    for k, v in ts.target.state_dict().items()})
+        for i, st in enumerate(ts.optimizer.state.values()):
+            out.update({f"optimizer.{i}.{k}": v for k, v in st.items()
+                        if isinstance(v, torch.Tensor)})
+        out.update({f"ring.{k}": v for k, v in rs.storage.items()})
+        out.update(tree=rs.tree, max_priority=rs.max_priority,
+                   cursor=rs.cursor, counter=ts.counter,
+                   generator=ts.generator.get_state())
+        for k, v in ast.state_dict().items():
+            if isinstance(v, dict):
+                out.update({f"actor.{k}.{n}": x for n, x in v.items()})
+            elif isinstance(v, list):
+                out.update({f"actor.{k}.{i}": x for i, x in enumerate(v)})
+            elif v is not None:
+                out[f"actor.{k}"] = (v[:STATS_RING] if k.endswith("_ring")
+                                     else v)
+        return out
+
+    pa, pb = pairs(*a), pairs(*b)
+    return {k: (x.double().cpu() - pb[k].double().cpu()).abs().max().item()
+            if x.numel() else 0.0 for k, x in pa.items()}
 
 
 class FusedApexTrainer:
@@ -193,12 +249,18 @@ class FusedApexTrainer:
     observations (uint8 replay rings), DQN/IQN/R2D2 updates, actor-side
     initial priorities, interleaved updates, transcripts (one rank),
     checkpoints and resume. `mesh` defaults to `make_mesh(device)`: the
-    process group's ranks when one is initialised, else one rank."""
+    process group's ranks when one is initialised, else one rank.
+
+    On a card each superstep is a replay of the CUDA graph `self.graph`
+    (see the module doc) but for the transcript harness's; `capture=False`
+    runs the same body op by op instead, for the bench's eager rate and
+    for tests that inject draws (not a config key)."""
 
     def __init__(self, config: Dict[str, Any], result_dir: str,
                  device: str | torch.device = "cuda",
                  mesh: Optional[Mesh] = None,
-                 logger: Optional[RunLogger] = None):
+                 logger: Optional[RunLogger] = None,
+                 capture: bool = True):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(self.device)
         d, rank = self.mesh.size, self.mesh.rank
@@ -256,11 +318,25 @@ class FusedApexTrainer:
             else self.algo_cfg.n_step,
             chunk_len=1 if interleave else self.loop_cfg.chunk_len,
             **config.get("replay", {}))
+        if not self.replay_cfg.prioritized:
+            raise ValueError(
+                "the fused trainer keeps its replay cursor on the device, "
+                "where only the PER sampler draws (uniform replay draws "
+                "its columns below a host bound: ROADMAP.md queue 1 item "
+                "3); use replay.prioritized=true or the host Trainer")
         self.flatten = len(spec.obs_shape) == 1
         prio = self.replay_cfg.use_inserted_priorities
         self.replay_state = replay_init(
             self.replay_cfg, replay_fields(spec, self.model_cfg, prio),
             self.device)
+        self.replay_state.cursor = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
+        graphed = (capture and self.device.type == "cuda"
+                   and not self.algo_cfg.debug_outputs)
+        if graphed and self.mesh.distributed and self.mesh.backend != "nccl":
+            raise ValueError(
+                f"a CUDA graph captures NCCL collectives only; this mesh "
+                f"is {self.mesh.backend}")
         # the rank's env and actor streams; one rank keeps the seed's own
         actor_seed = fold_in_str(seed, "actor")
         if d > 1:
@@ -271,9 +347,11 @@ class FusedApexTrainer:
         self.train_state = make_train_state(
             self.model_cfg, self.algo_cfg,
             model_in_shape(spec, 1, self.model_cfg),
-            fold_in_str(seed, "learner"), self.device)
+            fold_in_str(seed, "learner"), self.device, capturable=graphed)
         self.train_state.generator = self.mesh.shard_generator(
             self.train_state.generator)
+        self.train_state.counter = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
         L = self.loop_cfg.chunk_len
         self._super = make_superstep(
             self.env, self.model_cfg, self.algo_cfg, self.replay_cfg, L,
@@ -283,6 +361,16 @@ class FusedApexTrainer:
         self._warm_super = make_warm_superstep(
             self.env, self.model_cfg, self.algo_cfg, self.replay_cfg, L,
             compute_priorities=prio, mesh=self.mesh)
+        self.graph = None
+        if graphed:
+            self.graph = GraphedStep(
+                self._body,
+                [torch.empty((L, E), device=self.device),
+                 torch.empty((), device=self.device)],
+                generators=[self.train_state.generator,
+                            *self.actor_state.generators()])
+            self._graph_states = None
+            self._replay_census: Dict = {}
         self.exploration = build(config.get(
             "exploration", {"type": "epsilon_greedy"}))
         self.logger = logger or (RunLogger(result_dir, config)
@@ -307,33 +395,90 @@ class FusedApexTrainer:
         return eps_schedule(self.exploration, self.e_global, self.env_steps,
                             num_steps, self.device, self._lanes)
 
+    def _betas(self, num: int) -> torch.Tensor:
+        """(num,) float32: beta of each of the next `num` supersteps,
+        annealed on its POST-chunk step counter (the point Trainer
+        samples it), sent down in one copy as the epsilons are."""
+        per_chunk = self.loop_cfg.chunk_len * self.e_global
+        betas = torch.tensor([self._beta_at(self.env_steps
+                                            + (i + 1) * per_chunk)
+                              for i in range(num)], dtype=torch.float32)
+        if self.device.type == "cuda":
+            return betas.pin_memory().to(self.device, non_blocking=True)
+        return betas
+
+    def eager_superstep(self, tstate, astate, rstate, eps: torch.Tensor,
+                        beta, draws=None):
+        """The superstep's body run op by op on any states of this
+        trainer's shapes, in place (what a replay is held against).
+        Returns the metrics; the host counts are the caller's."""
+        *_, metrics = self._super(tstate, astate, rstate, eps, beta, draws)
+        return metrics
+
+    def _body(self, eps: torch.Tensor, beta: torch.Tensor, draws=None):
+        """One superstep of the trainer's own states: what the graph
+        captures."""
+        return self.eager_superstep(self.train_state, self.actor_state,
+                                    self.replay_state, eps, beta, draws)
+
+    def _replay(self, eps: torch.Tensor, beta: torch.Tensor):
+        """One superstep through the graph: the first WARMUP calls run the
+        body eagerly, the next captures it, every later one replays it.
+        The census counts the collectives the capture recorded once more
+        for every later replay."""
+        g = self.graph
+        states = (self.train_state, self.actor_state, self.replay_state)
+        if g.graph is None:
+            before = dict(census.COUNTS)
+            out = g(eps, beta)
+            if g.graph is not None:         # this call captured
+                self._graph_states = states
+                self._replay_census = {
+                    k: n - before.get(k, 0) for k, n in census.COUNTS.items()
+                    if n > before.get(k, 0)}
+            return out
+        if any(a is not b for a, b in zip(states, self._graph_states)):
+            raise RuntimeError("the graph holds the states it captured; "
+                               "this trainer's were replaced since")
+        out = g(eps, beta)
+        census.add(self._replay_census)
+        return out
+
     def superstep(self, draws=None):
         """One dispatch: S full supersteps, or one warmup act+insert.
 
         As `Trainer.train_chunk`, a chunk trains iff the post-chunk
         env-step counter has reached `warmup_env_steps`. `draws`: a list
-        of S injected draw sets (one dict for a warmup dispatch). Returns
-        the last superstep's metrics as device scalars ({} in warmup)."""
-        L, S = self.loop_cfg.chunk_len, self.supersteps
+        of S injected draw sets (one dict for a warmup dispatch; the
+        eager body only). Returns the last superstep's metrics as device
+        scalars ({} in warmup)."""
+        L, S, K = (self.loop_cfg.chunk_len, self.supersteps,
+                   self.loop_cfg.updates_per_chunk)
         per_chunk = L * self.e_global
         if self.env_steps + per_chunk < self.loop_cfg.warmup_env_steps:
-            self.actor_state, self.replay_state = self._warm_super(
-                self.train_state.model, self.actor_state, self.replay_state,
-                self._eps(L), draws)
+            self._warm_super(self.train_state.model, self.actor_state,
+                             self.replay_state, self._eps(L), draws)
             self.env_steps += per_chunk
+            self.replay_state.t += L
             return {}
-        eps = self._eps(S * L)
+        if draws and self.graph is not None:
+            raise ValueError("injected draws need the eager body: build the "
+                             "trainer with capture=False")
+        eps, betas = self._eps(S * L), self._betas(S)
         metrics = {}
         for i in range(S):
-            # beta annealed on the POST-chunk step counter (the point
-            # Trainer samples it), one value per superstep
-            beta = self._beta_at(self.env_steps + per_chunk)
-            (self.train_state, self.actor_state, self.replay_state,
-             metrics) = self._super(
-                self.train_state, self.actor_state, self.replay_state,
-                eps[i * L:(i + 1) * L], beta, draws[i] if draws else None)
-            self.env_steps += per_chunk
-        self.updates_done += S * self.loop_cfg.updates_per_chunk
+            step_eps = eps[i * L:(i + 1) * L]
+            if self.graph is None:
+                metrics = self._body(step_eps, betas[i],
+                                     draws[i] if draws else None)
+            else:
+                metrics = self._replay(step_eps, betas[i])
+        self.env_steps += S * per_chunk
+        self.updates_done += S * K
+        self.train_state.updates += S * K
+        self.replay_state.t += S * L
+        if self.graph is not None:      # the next replay overwrites them
+            metrics = {k: v.clone() for k, v in metrics.items()}
         if self.transcript is not None:
             metrics = dict(metrics)
             actions = metrics.pop("debug_chunk_action")

@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, ReplayState, replay_insert,
+    ReplayConfig, ReplayState, replay_insert_at_cursor,
 )
 from rltime_tpu_torch.parallel import census
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
@@ -213,14 +213,15 @@ def identity_mesh(device: str | torch.device = "cpu") -> Mesh:
 # holds another's, so sampling and insert cross no rank.
 
 def make_sharded_insert(local_cfg: ReplayConfig, mesh: Mesh):
-    """insert(state, chunk): the rank inserts its own lanes, then
-    `max_priority` (raised by actor-side priorities) is MAXed over the
-    ranks. The write cursor `t` is a host int that every rank advances by
-    the same chunk_len, so JAX's MAX of it is the identity here and
-    nothing is sent for it."""
+    """insert(state, chunk): the rank inserts its own lanes (at the
+    device cursor where the shard keeps one, as the fused trainer's
+    does), then `max_priority` (raised by actor-side priorities) is
+    MAXed over the ranks. Every rank advances its write cursor by the
+    same chunk_len, so JAX's MAX of it is the identity here and nothing
+    is sent for it."""
 
     def insert(state: ReplayState, chunk: Dict[str, Any]) -> ReplayState:
-        state = replay_insert(local_cfg, state, chunk)
+        state = replay_insert_at_cursor(local_cfg, state, chunk)
         mesh.max_(state.max_priority, "max_priority")
         return state
 

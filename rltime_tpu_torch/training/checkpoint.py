@@ -83,23 +83,55 @@ def restore(result_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
 
 
 def load_train_state(train_state: TrainState, ckpt: Dict[str, Any]) -> None:
-    """Copy a restored checkpoint into a live TrainState, in place."""
+    """Copy a restored checkpoint into a live TrainState, in place: every
+    tensor it held before (parameters, optimizer moments and step
+    counts, the device update counter) holds the checkpoint's values
+    after, at the same address, so a CUDA graph that captured them
+    continues from the checkpoint."""
     train_state.model.load_state_dict(ckpt["model"])
     train_state.target.load_state_dict(ckpt["target"])
-    train_state.optimizer.load_state_dict(ckpt["optimizer"])
+    load_optimizer_state(train_state.optimizer, ckpt["optimizer"])
     train_state.generator.set_state(ckpt["generator"])
     train_state.updates = int(ckpt["updates"])
+    if train_state.counter is not None:
+        train_state.counter.fill_(train_state.updates)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         saved: Dict[str, Any]) -> None:
+    """`optimizer.load_state_dict(saved)`, keeping the live optimizer's
+    `capturable` flag (an Adam saved by an eager run loads into a
+    captured one, and the reverse: torch then places the step counts
+    where the live flag needs them) and its state tensors: where the
+    optimizer already holds state, the loaded values are copied into
+    those tensors."""
+    flags = [g.get("capturable") for g in optimizer.param_groups]
+    saved = dict(saved, param_groups=[
+        dict(g, capturable=f) if f is not None else g
+        for g, f in zip(saved["param_groups"], flags)])
+    live = {p: dict(st) for p, st in optimizer.state.items()}
+    optimizer.load_state_dict(saved)
+    for p, old in live.items():
+        new = optimizer.state[p]
+        for k, v in new.items():
+            mine = old.get(k)
+            if isinstance(mine, torch.Tensor) and mine.shape == v.shape:
+                mine.copy_(v)
+                new[k] = mine
 
 
 def load_replay_state(replay_state: ReplayState, saved: Dict[str, Any]
                       ) -> None:
-    """Copy a restored checkpoint's replay into a live one, in place."""
+    """Copy a restored checkpoint's replay into a live one, in place (the
+    rings, the priority tree, max_priority and the device cursor keep
+    their addresses)."""
     for name, arr in saved["storage"].items():
         replay_state.storage[name].copy_(arr)
-    device = replay_state.tree.device
     replay_state.t = int(saved["t"])
-    replay_state.tree = saved["tree"].to(device)
-    replay_state.max_priority = saved["max_priority"].to(device)
+    replay_state.tree.copy_(saved["tree"])
+    replay_state.max_priority.copy_(saved["max_priority"])
+    if replay_state.cursor is not None:
+        replay_state.cursor.fill_(replay_state.t)
 
 
 def record_best(result_dir: str, step: int, score: float,

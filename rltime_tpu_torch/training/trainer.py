@@ -270,12 +270,17 @@ class Trainer:
         print(f"resumed from checkpoint at env step {step}")
 
     # ----- training -----
-    def _beta(self) -> float:
+    def _beta(self) -> torch.Tensor:
+        """The PER exponent at the actor's step count, as a 0-d float32
+        tensor on the host: the fused trainer's betas are float32
+        tensors, and a power takes another path for a float exponent
+        than for a tensor one (the last bit of a weight may differ)."""
         a = self.algo_cfg
         frac = min(self.actor.env_steps
                    / max(self.loop_cfg.total_env_steps, 1), 1.0)
-        return a.per_beta_start + frac * (a.per_beta_end
-                                          - a.per_beta_start)
+        return torch.tensor(a.per_beta_start + frac * (a.per_beta_end
+                                                       - a.per_beta_start),
+                            dtype=torch.float32)
 
     def train_chunk(self, draws=None):
         """One acting chunk + its learner updates. Returns metrics.

@@ -33,7 +33,7 @@ import torch
 
 from rltime_tpu_torch.device import resolve_device
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, ReplayState, replay_init, replay_insert,
+    ReplayConfig, ReplayState, replay_in_place, replay_init, replay_insert,
     replay_insert_device,
 )
 from rltime_tpu_torch.models.policy import ModelConfig
@@ -147,19 +147,16 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
         insert=lambda rs, ck: replay_insert_device(rcfg, rs, ck))
 
     def body(tstate, rstate, beta, chunks, draws=None):
-        """S x (device-cursor insert of chunk s + K updates), in place.
-        `draws[s]` (tests) injects chunk s's K updates' draws."""
-        tree, max_p = rstate.tree, rstate.max_priority
+        """S x (device-cursor insert of chunk s + K updates), in place
+        (the next replay reads the tree and max_priority from the
+        tensors this one started from). `draws[s]` (tests) injects chunk
+        s's K updates' draws."""
         metrics = {}
-        for s in range(supersteps):
-            ck = {name: x[s] for name, x in chunks.items()}
-            tstate, rstate, metrics = insert_update(
-                tstate, rstate, ck, beta, draws[s] if draws else None)
-        # the carry: the next dispatch (the next replay) reads the tree
-        # and max_priority from the tensors this one started from
-        tree.copy_(rstate.tree)
-        max_p.copy_(rstate.max_priority)
-        rstate.tree, rstate.max_priority = tree, max_p
+        with replay_in_place(rstate):
+            for s in range(supersteps):
+                ck = {name: x[s] for name, x in chunks.items()}
+                tstate, rstate, metrics = insert_update(
+                    tstate, rstate, ck, beta, draws[s] if draws else None)
         return metrics
 
     def _count(tstate, rstate):

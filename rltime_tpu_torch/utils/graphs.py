@@ -27,8 +27,9 @@ never sync (`torch.cuda.set_sync_debug_mode("error")` shows one). There
 is no capture on the CPU: the CPU route calls the step itself.
 
 A caller that reads the graph back (`kernel_counts`, for the checks on
-the card) sets `debug = True` before the capturing call; only then is
-the captured `cudaGraph_t` kept beside its executable.
+the card) sets `debug = True` before the capturing call, on the step or
+on the class (for steps that an entry point builds); only then is the
+captured `cudaGraph_t` kept beside its executable.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ class GraphedStep:
     `generators` the CUDA generators it draws from."""
 
     WARMUP = 2      # eager calls before the capture
+    debug = False   # keep the captured graph for `kernel_counts`
 
     def __init__(self, fn: Callable, static_inputs: Sequence[torch.Tensor],
                  generators: Sequence[torch.Generator] = ()):
@@ -61,10 +63,11 @@ class GraphedStep:
         self.fn = fn
         self.static_inputs = list(static_inputs)
         self.generators = list(generators)
-        self.debug = False
         self.device = next(iter(devices))
         self.calls = 0
+        self.replays = 0
         self.graph = None
+        self.kept = False   # the capture kept its cudaGraph_t (debug)
         self.output = None
 
     def __call__(self, *inputs: torch.Tensor):
@@ -84,6 +87,7 @@ class GraphedStep:
                 return self._eager()
             self._capture()
         self.graph.replay()
+        self.replays += 1
         return self.output
 
     def _eager(self):
@@ -103,13 +107,13 @@ class GraphedStep:
             graph.register_generator_state(gen)
         with torch.cuda.device(self.device), torch.cuda.graph(graph):
             self.output = self.fn(*self.static_inputs)
-        self.graph = graph
+        self.graph, self.kept = graph, self.debug
 
     def kernel_counts(self, names: Sequence[str], path: str) -> Dict[str, int]:
         """How many kernel nodes of the captured graph launch a kernel
         whose name contains each of `names`, read from the graph's
         Graphviz dump (`CUDAGraph.debug_dump`, written to `path`)."""
-        if self.graph is None or not self.debug:
+        if self.graph is None or not self.kept:
             raise RuntimeError("no graph captured with debug = True")
         self.graph.debug_dump(path)
         with open(path) as f:

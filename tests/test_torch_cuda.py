@@ -279,3 +279,72 @@ def test_global_norm_ignores_the_gradients_layout(cuda_device, shapes):
         norm = _global_norm(grads)
         assert torch.equal(norm, _global_norm(views))
         assert torch.equal(norm, _global_norm(transposed))
+
+
+def _small_fused_config(case):
+    """A MinAtar Breakout fused trainer at a small size: 8 lanes of
+    8-step chunks, batch 8, 2 updates a chunk (8, one a step,
+    interleaved), actor-side priorities for IQN and interleaved."""
+    cfg = {
+        "seed": 3,
+        "env": {"type": "minatar_breakout", "num_envs": 8, "time_limit": 12},
+        "model": {"torso": "minatar_cnn", "cnn_channels": [6], "cnn_fc": 16,
+                  "head": "dueling", "dueling_hidden": 8},
+        "replay": {"steps_per_env": 64,
+                   "use_inserted_priorities": case in ("iqn",
+                                                       "interleaved")},
+        "algo": {"algo": "dqn", "batch_size": 8, "n_step": 3, "lr": 1e-3,
+                 "target_update_freq": 3},
+        "train": {"total_env_steps": 10**6, "warmup_env_steps": 128,
+                  "chunk_len": 8, "updates_per_chunk": 2,
+                  "log_interval": 10**9, "trainer": "fused"},
+    }
+    if case == "iqn":
+        cfg["model"].update(head="iqn", iqn_embed_dim=8, num_tau_policy=6)
+        cfg["algo"].update(algo="iqn", num_tau=7, num_tau_prime=5)
+    elif case == "r2d2":
+        cfg["model"]["lstm_size"] = 8
+        cfg["algo"].update(algo="r2d2", n_step=2, burn_in=2, seq_len=4)
+    elif case == "interleaved":
+        cfg["train"].update(interleave_updates=True, updates_per_chunk=8)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dqn", "iqn", "r2d2", "interleaved"])
+def test_captured_fused_superstep_equals_eager_body(cuda_device, case,
+                                                    monkeypatch, tmp_path):
+    """The fused trainer on the card: its third trained superstep
+    captures the graph; one more, a replay, equals the eager body run
+    from clones of the same states on the same epsilons and beta, every
+    tensor and generator state (cuDNN deterministic); the replay runs no
+    Python wrapper, and the graph holds one window_gather node per
+    update and no union_gather."""
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer, state_diffs
+    from rltime_tpu_torch.utils import benchprog
+    from rltime_tpu_torch.utils.graphs import GraphedStep
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(GraphedStep, "debug", True)
+    t = FusedApexTrainer(_small_fused_config(case), str(tmp_path / "run"),
+                         device=cuda_device)
+    while t.graph.graph is None:
+        t.superstep()
+    L = t.loop_cfg.chunk_len
+    eps, beta = t._eps(L), t._betas(1)[0]
+    ts, rs = benchprog.clone_states(t.train_state, t.replay_state)
+    clone = (ts, t.actor_state.clone(), rs)
+    gather.reset_counts()
+    m = t.superstep()
+    assert gather.LAUNCHES == {"union_gather": 0, "window_gather": 0}
+    eager_m = t.eager_superstep(*clone, eps, beta)
+    torch.cuda.synchronize()
+    diffs = state_diffs((t.train_state, t.actor_state, t.replay_state),
+                        clone)
+    assert not {k: v for k, v in diffs.items() if v}
+    for k, v in m.items():
+        assert torch.equal(v, eager_m[k]), k
+    counts = t.graph.kernel_counts(("union_gather_kernel",
+                                    "window_gather_kernel"),
+                                   str(tmp_path / "graph.dot"))
+    assert counts == {"union_gather_kernel": 0,
+                      "window_gather_kernel": t.loop_cfg.updates_per_chunk}

@@ -9,8 +9,9 @@ the first update's sampled leaves are bit-equal, and loss, |TD|, grad
 norm, priorities and the params after Adam agree to 1e-5.
 
 Within the port, bit for bit: one S=4 dispatch equals four S=1
-dispatches, the fused trainer equals `Trainer` + `DeviceActor`, and a
-run resumed from a checkpoint continues as the run that wrote it. All
+dispatches, the fused trainer (device cursor and update counter) equals
+`Trainer` + `DeviceActor` (host ints), and a run resumed from a
+checkpoint continues as the run that wrote it. All
 seven `configs/minatar_*.json` presets (DQN, IQN, R2D2) run to the end
 through the CLI at a cut size.
 """
@@ -75,25 +76,37 @@ def _cfg(algo="dqn", warmup=2 * L * E, supersteps=1, replay=None, **train):
     return cfg
 
 
-@pytest.mark.parametrize("algo,warmup", [("dqn", 0), ("dqn", 2 * L * E),
-                                         ("iqn", 2 * L * E)])
-def test_superstep_matches_jax(tmp_path, algo, warmup):
-    superstep_parity(tmp_path, algo, warmup)
+@pytest.mark.parametrize("algo,warmup,supersteps", [
+    pytest.param("dqn", 0, 1, id="dqn-0"),
+    pytest.param("dqn", 2 * L * E, 1, id="dqn-64"),
+    pytest.param("iqn", 2 * L * E, 1, id="iqn-64"),
+    pytest.param("dqn", 0, 4, id="dqn-0-s4"),
+    pytest.param("dqn", 2 * L * E, 4, id="dqn-64-s4")])
+def test_superstep_matches_jax(tmp_path, algo, warmup, supersteps):
+    """The port's fused route (device cursor, device update counter, a
+    tensor beta per superstep) against the JAX trainer's jitted
+    superstep, one dispatch of S = 1 or of S = 4 (JAX's scan). S = 4
+    runs 8 updates where S = 1 runs 2, so its float plane is held as
+    the interleaved superstep's 8 updates are (test_torch_interleave)."""
+    superstep_parity(tmp_path, algo, warmup,
+                     rtol=1e-5 if supersteps == 1 else 2e-4,
+                     supersteps_per_dispatch=supersteps)
 
 
 def superstep_parity(tmp_path, algo, warmup, replay=None, rtol=1e-5,
                      **train):
-    """A warm chunk (if `warmup`) and one superstep of both fused
+    """A warm chunk (if `warmup`) and one dispatch of both fused
     trainers from the JAX side's weights and draws; `replay` and `train`
-    override those config blocks (chunk_len and updates_per_chunk
-    included). Integer plane bit-equal; float plane to `rtol` (params to
-    atol = `rtol`)."""
+    override those config blocks (chunk_len, updates_per_chunk and
+    supersteps_per_dispatch included). Integer plane bit-equal; float
+    plane to `rtol` (params to atol = `rtol`)."""
     cfg = _cfg(algo, warmup, replay=replay, **train)
     L, K = cfg["train"]["chunk_len"], cfg["train"]["updates_per_chunk"]
+    S = cfg["train"]["supersteps_per_dispatch"]
     jcfg = copy.deepcopy(cfg)
-    # the JAX fused path has debug leaves only without warmup, and never
-    # under interleave_updates
-    debug = warmup == 0 and not train.get("interleave_updates")
+    # the JAX fused path has debug leaves only without warmup, at S = 1,
+    # and never under interleave_updates
+    debug = warmup == 0 and S == 1 and not train.get("interleave_updates")
     jcfg["algo"]["debug_outputs"] = cfg["algo"]["debug_outputs"] = debug
     jt = JFused(jcfg, str(tmp_path / "jax"),
                 mesh=make_mesh(jax.devices()[:1]))
@@ -133,18 +146,22 @@ def superstep_parity(tmp_path, algo, warmup, replay=None, rtol=1e-5,
         assert jt.superstep() == {}
         assert tt.superstep(dict(act=act_draws())) == {}
         assert tt.updates_done == 0
-    updates = []
-    for _ in range(K):      # fused.py:248-251
-        updates.append(draws_lib.update_draws(
-            jax.random.fold_in(learner_key, 0), B, **iqn))
-        learner_key = jax.random.split(learner_key, 3)[0]
+    dispatch = []
+    for _ in range(S):
+        updates = []
+        for _ in range(K):      # fused.py:248-251
+            updates.append(draws_lib.update_draws(
+                jax.random.fold_in(learner_key, 0), B, **iqn))
+            learner_key = jax.random.split(learner_key, 3)[0]
+        dispatch.append(dict(act=act_draws(), update=updates))
     jm = jt.superstep()
-    tm = tt.superstep([dict(act=act_draws(), update=updates)])
+    tm = tt.superstep(dispatch)
 
-    assert tt.env_steps == jt.env_steps == (2 if warmup else 1) * L * E
-    assert tt.updates_done == jt.updates_done == K
+    assert tt.env_steps == jt.env_steps == ((1 if warmup else 0) + S) * L * E
+    assert tt.updates_done == jt.updates_done == S * K
     jrs, trs = jt.replay_state, tt.replay_state
-    assert trs.t == int(jrs.t)
+    assert trs.t == int(jrs.t) == trs.cursor.item()
+    assert tt.train_state.counter.item() == tt.train_state.updates == S * K
     for name, ring in trs.storage.items():
         want = np.asarray(jrs.storage[name])
         assert ring.numpy().dtype == want.dtype, name
@@ -240,15 +257,24 @@ def test_s4_dispatch_equals_four_s1_dispatches(tmp_path, algo):
     assert np.isfinite(m4["loss"].item())
 
 
-@pytest.mark.parametrize("algo", ["dqn", "iqn", "r2d2"])
-def test_fused_equals_trainer_with_device_actor(tmp_path, algo):
-    cfg = _cfg(algo)
-    fused = FusedApexTrainer(cfg, str(tmp_path / "f"), device="cpu")
-    host = Trainer(cfg, str(tmp_path / "h"), device="cpu")
-    for _ in range(5):
+@pytest.mark.parametrize("algo,supersteps", [
+    pytest.param("dqn", 1, id="dqn"), pytest.param("iqn", 1, id="iqn"),
+    pytest.param("r2d2", 1, id="r2d2"), pytest.param("dqn", 4, id="dqn-s4"),
+    pytest.param("r2d2", 4, id="r2d2-s4")])
+def test_fused_equals_trainer_with_device_actor(tmp_path, algo, supersteps):
+    """The fused route (device cursor, device update counter, a tensor
+    beta) equals the host `Trainer`'s (host ints, a float beta) bit for
+    bit, with one superstep a dispatch or four."""
+    fused = FusedApexTrainer(_cfg(algo, supersteps=supersteps),
+                             str(tmp_path / "f"), device="cpu")
+    host = Trainer(_cfg(algo), str(tmp_path / "h"), device="cpu")
+    for _ in range(1 + 4 // supersteps):
         fused.superstep()
+    for _ in range(5):
         host.train_chunk()
     assert host.updates_done == fused.updates_done == 4 * K
+    assert fused.replay_state.cursor.item() == fused.replay_state.t
+    assert fused.train_state.counter.item() == 4 * K
     assert host.actor.env_steps == fused.env_steps
     _assert_same_run(*_fused_parts(fused), host.train_state,
                      host.replay_state, host.actor.state)

@@ -9,6 +9,11 @@ acting through the port's actor.
 
     PYTHONPATH=. python tests/torch_port_cartpole_spread.py \
         [port|jax|perturb|cross] [seeds...]
+
+`summary LOG...` reads the `port seed N {...}` and `jax seed N {...}`
+lines of such runs' output and prints, per side, the number of seeds,
+the median score, how many reach the bar (475), and a two-sided Fisher
+exact test of those two counts.
 """
 import sys
 import tempfile
@@ -99,7 +104,36 @@ def _jax_weights_through_port_actor(seed, root):
                 port_actor_returns=rets[:10])
 
 
+def summary(paths, bar=475.0):
+    """Per side: seeds, median, how many reach `bar`; Fisher's p."""
+    import ast
+    import re
+
+    from scipy.stats import fisher_exact
+    scores = {"port": {}, "jax": {}}
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                m = re.match(r"(port|jax) seed (\d+) (\{.*\})$", line.strip())
+                if m:
+                    rec = ast.literal_eval(m.group(3))
+                    scores[m.group(1)][int(m.group(2))] = rec["return_mean"]
+    out = {}
+    for side, by_seed in scores.items():
+        vals = [by_seed[k] for k in sorted(by_seed)]
+        out[side] = dict(seeds=len(vals), median=float(np.median(vals)),
+                         reach=sum(v >= bar for v in vals),
+                         scores=dict(sorted(by_seed.items())))
+    table = [[out[s]["reach"], out[s]["seeds"] - out[s]["reach"]]
+             for s in ("port", "jax")]
+    out["fisher_two_sided_p"] = float(fisher_exact(table)[1])
+    return out
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["summary"]:
+        print(summary(sys.argv[2:]))
+        sys.exit(0)
     jax.config.update("jax_platforms", "cpu")
     what = sys.argv[1] if len(sys.argv) > 1 else "port"
     seeds = [int(s) for s in sys.argv[2:]] or [0, 1, 2]

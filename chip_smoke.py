@@ -17,20 +17,22 @@ Phases (any failure exits non-zero and prints no result line):
   3. the config-#2 path: `rltime_tpu_torch.train.run` (what `python -m
      rltime_tpu_torch.train` runs) on `pong_dqn_counting` at full width
      for 24,576 env steps with 8,192 of warmup: 9 chunks of {insert +
-     K=2 updates}, 18 learner updates at batch 256. The kernels' launch
-     counters are zeroed just before and read just after: one
-     union_gather launch serves every update's two frame stacks, one
-     window_gather launch its three n-step strips and the action. Then
-     8 warm chunks timed by the host
-     clock and a few more under torch.profiler for the warm per-chunk
-     split and device-busy share;
+     K=2 updates}, 18 learner updates at batch 256, the first two trained
+     chunks op by op, the third capturing {insert + 2 updates} into a
+     CUDA graph and every later chunk a replay of it. The kernels' launch
+     counters are zeroed just before and read just after, counted
+     through the graph as phase 5's are: one union_gather launch serves
+     every update's two frame stacks, one window_gather launch its three
+     n-step strips and the action (2 + 2 kernel nodes in the graph).
+     Then 8 warm chunks timed by the host clock and a few more under
+     torch.profiler for the warm per-chunk split and device-busy share;
   4. the config-#4 path: the same entry point on `atari_r2d2_counting`
      at full width (Nature CNN, LSTM 512, dueling, bf16, E=64, T=4096,
      batch 64, burn-in 40, seq 80, n=5) for 49,152 env steps with
-     16,384 of warmup: 9 chunks of 64 steps, each with one R2D2 update.
-     Counted as phase 3 is; one window_gather launch per update serves
-     the frame sequence, every strip and the stored carry. Then the
-     warm windows, as in phase 3;
+     16,384 of warmup: 9 chunks of 64 steps, each with one R2D2 update,
+     captured as phase 3's. Counted as phase 3 is; one window_gather
+     launch per update serves the frame sequence, every strip and the
+     stored carry. Then the warm windows, as in phase 3;
   5. the fused on-device path: the same entry point on
      `minatar_breakout_dqn` at full width (E=256, T=512, MinAtar CNN,
      dueling, batch 256, n=3, L=32, 64 updates per chunk, S=4) for
@@ -58,6 +60,22 @@ Phases (any failure exits non-zero and prints no result line):
      its graph: the frame sequence, its done window, three strips, the
      carry) and `minatar_seaquest_dqn`, through the same entry point,
      captured and counted as phase 5 is;
+ 16. (run right after phase 15) the host learners' graphs, under
+     cudnn.deterministic, at full width: config #2 (`pong_dqn_counting`),
+     config #4 (`atari_r2d2_counting`), config #1 (`cartpole_dqn` over
+     `cartpole_native`: uniform replay, the lr schedule on the device),
+     `cartpole_dqn_device` through the host Trainer and through the fused
+     trainer, config #2 with its options (NHWC, space-to-depth conv_0,
+     RMSProp, the sum tree, actor-side priorities) and as IQN; each
+     trained to its capture, its graph's union_gather and window_gather
+     nodes counted, then 8 chunks each a replay held against the eager
+     body run from clones of the states taken before them on the same
+     chunks and betas (every tensor and generator state and each chunk's
+     metrics, max abs difference 0), then (but for the last two) the
+     warm rates captured and op by op (`capture=False`): env-steps/s,
+     insert + update ms per chunk and per update, and the device-busy
+     share of a profiled chunk (config #5 gets the same checks in phase
+     12);
  15. (run right after phase 7) the graph against the eager body under
      cudnn.deterministic, at the full width of `minatar_breakout_dqn`
      (chunked), `minatar_breakout_iqn` with actor-side priorities,
@@ -78,13 +96,15 @@ Phases (any failure exits non-zero and prints no result line):
   9. the options of the config-#2 path at full width, counted as phase 3
      is: `pong_dqn_counting` with NHWC stacks, the space-to-depth conv_0,
      centered RMSProp, the sum-tree sampler, actor-side initial
-     priorities and a transcript (one union_gather and one window_gather
-     launch per update, a `transcript.jsonl` record per chunk), then a
-     few warm chunks timed; and the same preset with `algo.use_lambda`
-     (Q(lambda): the n+1 frame stacks ride in the one window_gather
-     launch, no union_gather);
+     priorities and a transcript (op by op, the transcript route: one
+     union_gather and one window_gather launch per update, a
+     `transcript.jsonl` record per chunk), then a few warm chunks timed;
+     and the same preset with `algo.use_lambda` (Q(lambda), captured:
+     the n+1 frame stacks ride in the one window_gather launch, no
+     union_gather);
  10. config #1: `cartpole_dqn` (host CartPole, uniform replay) and
-     `cartpole_dqn_device` as written, cut to a few thousand steps, then
+     `cartpole_dqn_device` as written, cut to a few thousand steps, each
+     captured (uniform replay and the lr schedule on the device), then
      `rltime_tpu_torch.eval.evaluate` on each result directory, latest
      and `--best`;
  11. the fused trainer with `train.interleave_updates` and actor-side
@@ -100,12 +120,15 @@ Phases (any failure exits non-zero and prints no result line):
      (`apex_multihost_counting`, `train.trainer=apex`) through the same
      entry point at full width (Nature CNN, dueling, bf16, 32 lanes x
      4,096 columns of 84x84 uint8, batch 64, n=3, F=4) for 16 updates,
-     counted as phase 3 is (one union_gather and one window_gather
-     launch per update) and by the census of collectives (one gradient
-     all-reduce of the parameters per update, one metrics buffer and the
-     max_priority MAXes, nothing else); the same updates through the
-     identity mesh, bit-equal, and warm windows of both meshes in turns
-     (ABBA) with each one's device-busy time per chunk; the
+     each post-warmup chunk's sharded insert and 2 updates one graph
+     replay after two eager chunks and the capture, counted as phase 3
+     is (one union_gather and one window_gather launch per update) and
+     by the census of collectives (one gradient all-reduce of the
+     parameters per update, one metrics buffer and the max_priority
+     MAXes, nothing else; a replay adds what its capture recorded); the
+     same updates through the identity mesh, bit-equal, and warm windows
+     of both meshes in turns (ABBA) with each one's device-busy time per
+     chunk; phase 16's checks of config #5 on the NCCL mesh; the
      `minatar_breakout_dqn` fused trainer through the NCCL mesh,
      captured with its all-reduces: a replayed superstep under
      set_sync_debug_mode("error"), its collectives counted by the census
@@ -883,11 +906,15 @@ def _run_phases(trainer, result_dir: Path) -> dict:
 def run_path(path: dict):
     """Drive one config through the CLI's entry point on the card with
     the launch counters zeroed just before and read just after; check
-    what every path must show. Returns (trainer, launches, plain)."""
+    what every path must show. The host trainer captures its insert + K
+    updates after two eager chunks (`GraphedStep.debug` on, to count the
+    graph's kernel nodes), but for the transcript route. Returns
+    (trainer, launches)."""
     import torch
     from rltime_tpu_torch import train
     from rltime_tpu_torch.ops import gather
     from rltime_tpu_torch.training import checkpoint as ckpt_lib
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     tag = path.get("tag", path["preset"])
     result_dir = ROOT / "results" / f"chip_smoke_{tag}"
     shutil.rmtree(result_dir, ignore_errors=True)
@@ -897,10 +924,15 @@ def run_path(path: dict):
             f"--train.total_env_steps={path['steps']}",
             *path.get("overrides", [])]
     torch.cuda.reset_peak_memory_stats()
+    GraphedStep.debug = True            # keep the graph to count its nodes
     gather.reset_counts()
-    trainer = train.run(argv)
-    torch.cuda.synchronize()
-    launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+    try:
+        trainer = train.run(argv)
+        torch.cuda.synchronize()
+    finally:
+        GraphedStep.debug = False
+    wrapper, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+    launches, nodes = counted_launches(trainer, tag, wrapper)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phases = _run_phases(trainer, result_dir)
     loop_s = sum(phases.values())
@@ -926,8 +958,12 @@ def run_path(path: dict):
           and (result_dir / "checkpoints" / str(step) / "state.pt").is_file(),
           f"{tag}: checkpoint missing (latest step {step})")
     upd_s = phases["insert+update"]
+    graph = ("op by op (transcript route)" if nodes is None else
+             f"graph kernel nodes {nodes} x {trainer.graph.replays} replays "
+             f"after {GraphedStep.WARMUP} eager chunks and the capture")
     print(f"{tag}: {path['steps']} env steps, {trainer.updates_done} "
-          f"updates, launches {launches}, plain calls {plain}; last loss "
+          f"updates, launches {launches} ({graph}), plain calls {plain}; "
+          "last loss "
           f"{m['loss'].item():.6g} grad_norm {m['grad_norm'].item():.6g} "
           f"td_abs {m['td_abs'].item():.6g} q {m['q'].item():.6g}",
           flush=True)
@@ -1025,35 +1061,53 @@ def phase_steady_state(trainer, smi: str, chunks: int, profiled: int):
         print(f"  device {ms:9.4f} ms/chunk  {name[:110]}", flush=True)
 
 
-def graph_launches(trainer, tag: str, wrapper: dict) -> dict:
-    """The gather kernels a captured fused trainer launched since the
-    counters were zeroed before its first superstep: the Python
-    wrappers' counts (`wrapper`) cover the eager warm-up supersteps and
-    the capturing pass, which records the kernels into the graph
-    without launching them; each replay launches the graph's kernel
-    nodes (counted from its Graphviz dump). Checks one window_gather node
-    per update of a superstep, no union_gather, and that the wrappers ran
-    in the warm-ups and the capture only. Returns (launches, nodes)."""
-    from rltime_tpu_torch.utils.graphs import GraphedStep
+def graph_nodes(trainer, tag: str) -> dict:
+    """The gather kernel nodes of a trainer's captured graph, counted
+    from its Graphviz dump (the graph was captured with
+    `GraphedStep.debug` on)."""
     g = trainer.graph
     check(g is not None and g.graph is not None,
-          f"{tag}: the fused trainer on the card has no captured graph")
-    dot = ROOT / "results" / f"chip_smoke_graph_fused_{tag}.dot"
+          f"{tag}: the trainer on the card has no captured graph")
+    name = "".join(c if c.isalnum() else "_" for c in tag)
+    dot = ROOT / "results" / f"chip_smoke_graph_{name}.dot"
     dot.parent.mkdir(parents=True, exist_ok=True)
     counts = g.kernel_counts(BENCH_KERNELS, str(dot))
-    nodes = {"union_gather": counts["union_gather_kernel"],
-             "window_gather": counts["window_gather_kernel"]}
+    return {"union_gather": counts["union_gather_kernel"],
+            "window_gather": counts["window_gather_kernel"]}
+
+
+def counted_launches(trainer, tag: str, wrapper: dict):
+    """The gather kernels a trainer launched since the counters were
+    zeroed before its first trained chunk or superstep. Op by op (no
+    graph) the Python wrappers' counts (`wrapper`) are the launches.
+    Captured, they cover the eager warm-ups and the capturing pass,
+    which records the kernels into the graph without launching them;
+    each replay launches the graph's kernel nodes. Checks that the
+    wrappers ran in the warm-ups and the capture only. Returns
+    (launches, nodes: the graph's kernel nodes, None op by op)."""
+    from rltime_tpu_torch.utils.graphs import GraphedStep
+    if getattr(trainer, "graph", None) is None:
+        return wrapper, None
+    nodes = graph_nodes(trainer, tag)
+    passes = GraphedStep.WARMUP + 1
+    check(wrapper == {k: passes * n for k, n in nodes.items()},
+          f"{tag}: wrapper launches {wrapper} beside graph nodes {nodes}: "
+          f"expected {passes} x the nodes (the eager warm-ups and the "
+          "capture; none in a replay)")
+    launches = {k: wrapper[k] - n + n * trainer.graph.replays
+                for k, n in nodes.items()}
+    return launches, nodes
+
+
+def graph_launches(trainer, tag: str, wrapper: dict) -> dict:
+    """`counted_launches` of a captured fused trainer, checking one
+    window_gather node per update of a superstep and no union_gather.
+    Returns (launches, nodes)."""
+    launches, nodes = counted_launches(trainer, tag, wrapper)
     k = trainer.loop_cfg.updates_per_chunk
     check(nodes == {"union_gather": 0, "window_gather": k},
           f"{tag}: graph kernel nodes {nodes}, expected {k} window_gather "
           "(one per update of a superstep) and no union_gather")
-    passes = GraphedStep.WARMUP + 1
-    check(wrapper == {"union_gather": 0, "window_gather": passes * k},
-          f"{tag}: wrapper launches {wrapper}, expected {passes} x {k} "
-          "(the eager warm-ups and the capture; none in a replay)")
-    # the capturing pass ran the wrappers once per node, launching nothing
-    launches = {name: wrapper[name] - n + n * g.replays
-                for name, n in nodes.items()}
     return launches, nodes
 
 
@@ -1608,6 +1662,209 @@ def phase_fused_graph_parity(smi: str):
           flush=True)
 
 
+# phase 16: the host learners' step as one CUDA graph per chunk, at
+# each config's full width (`per_update`: the gather kernels of one update)
+HOST_GRAPH_CASES = (
+    dict(preset="pong_dqn_counting", tag="config #2 pong_dqn_counting",
+         per_update={"union_gather": 1, "window_gather": 1}),
+    dict(preset="atari_r2d2_counting", tag="config #4 atari_r2d2_counting",
+         per_update={"union_gather": 0, "window_gather": 1}),
+    dict(preset="cartpole_dqn", tag="config #1 cartpole_dqn+cartpole_native",
+         overrides=["env.type=cartpole_native"],
+         per_update={"union_gather": 0, "window_gather": 1}),
+    dict(preset="cartpole_dqn_device", tag="cartpole_dqn_device (Trainer)",
+         per_update={"union_gather": 0, "window_gather": 1}),
+    dict(preset="cartpole_dqn_device", tag="cartpole_dqn_device (fused)",
+         overrides=["train.trainer=fused"],
+         per_update={"union_gather": 0, "window_gather": 1}),
+    # config #2's options and its IQN variant, captured (phase 9 runs the
+    # options on the transcript route, op by op): the graph against its
+    # eager body only
+    dict(preset="pong_dqn_counting", tag="config #2 with its options",
+         overrides=["model.channels_last=true", "model.space_to_depth=true",
+                    "algo.optimizer=rmsprop", "replay.sampler=tree",
+                    "replay.use_inserted_priorities=true"],
+         per_update={"union_gather": 1, "window_gather": 1}, rates=False),
+    dict(preset="pong_dqn_counting", tag="config #2 as IQN",
+         overrides=["model.head=iqn", "algo.algo=iqn"],
+         per_update={"union_gather": 1, "window_gather": 1}, rates=False),
+)
+PARITY_CHUNKS = 8       # replays held against the eager body
+RATE_CHUNKS = 8         # warm chunks timed on each route
+
+
+def host_config(case: dict) -> dict:
+    """A case's preset with its overrides, run for as long as it is
+    driven (no log, no checkpoint on the way)."""
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    return apply_overrides(load_config(case["preset"]), [
+        *case.get("overrides", []), "train.total_env_steps=1000000000",
+        "train.log_interval=1000000000",
+        "train.checkpoint_interval=1000000000"])
+
+
+def _host_rates(t, fused: bool) -> dict:
+    """Warm rates of a trainer that has trained past its graph's capture
+    (or its first chunks, op by op): RATE_CHUNKS chunks (supersteps) by
+    the host clock to a synchronise, then one more under torch.profiler
+    for its device-busy time."""
+    import torch
+    K = t.loop_cfg.updates_per_chunk
+    if fused:
+        r = fused_rates(t, RATE_CHUNKS)
+        rate, chunk_ms = r["env_steps_per_s"], r["ms_per_superstep"]
+        upd_ms = None
+        _, busy, _ = device_profile(t.superstep)
+    else:
+        rate, act_ms, per_upd = _warm_chunks(t, RATE_CHUNKS)
+        chunk_ms = (t.loop_cfg.chunk_len * t.env.num_envs / rate * 1e3)
+        upd_ms = per_upd * K
+        _, busy, _ = device_profile(t.train_chunk)
+        t.timers.pop()
+    torch.cuda.synchronize()
+    return dict(rate=rate, chunk_ms=chunk_ms, upd_ms=upd_ms, busy=busy,
+                share=busy / chunk_ms, K=K)
+
+
+def _rates_text(r: dict) -> str:
+    upd = ("" if r["upd_ms"] is None else
+           f"insert+update {r['upd_ms']:.3f} ms/chunk, "
+           f"{r['upd_ms'] / r['K']:.3f} ms/update, ")
+    return (f"{r['rate']:.1f} env-steps/s ({r['chunk_ms']:.3f} ms/chunk), "
+            f"{upd}device busy {r['busy']:.3f} ms of a profiled chunk "
+            f"({r['share']:.1%} of the unprofiled chunk)")
+
+
+def host_graph_case(case: dict, make, smi: str) -> dict:
+    """One host learner (or the fused trainer) at full width under
+    cudnn.deterministic: `make(capture)` builds it. Captured: trained to
+    its capture (`GraphedStep.debug` on), the graph's gather kernel
+    nodes counted (`case["per_update"]` per update), then PARITY_CHUNKS
+    chunks each a replay held against the eager body on clones of the
+    states taken before the first (the same chunks and betas; the fused
+    trainer: the same epsilons): every parameter, target, optimizer
+    moment, step count and lr, the counter, rings, tree, max_priority,
+    cursor and generator state (for the fused trainer the actor state
+    too), and each chunk's metrics, max abs difference 0. Then the warm
+    rates of the captured trainer and of the same trainer op by op
+    (`capture=False`), unless `case["rates"]` is False. Returns the
+    graph's kernel nodes."""
+    import torch
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.parallel.fused import state_diffs
+    from rltime_tpu_torch.utils import benchprog
+    from rltime_tpu_torch.utils.graphs import GraphedStep
+    tag = case["tag"]
+    t0 = time.perf_counter()
+    GraphedStep.debug = True
+    try:
+        t = make(True)
+        fused = hasattr(t, "superstep")
+        step = t.superstep if fused else t.train_chunk
+        while t.graph.graph is None:
+            step()
+    finally:
+        GraphedStep.debug = False
+    K = t.loop_cfg.updates_per_chunk
+    nodes = graph_nodes(t, tag)
+    want = {k: n * K for k, n in case["per_update"].items()}
+    check(nodes == want, f"{tag}: graph kernel nodes {nodes}, expected "
+          f"{want} ({K} updates a chunk)")
+    ts, rs = benchprog.clone_states(t.train_state, t.replay_state)
+    ast = t.actor_state.clone() if fused else None
+    dev = t.device
+    metric_diff = 0.0
+    for _ in range(PARITY_CHUNKS):
+        gather.reset_counts()
+        if fused:
+            eps, beta = t._eps(t.loop_cfg.chunk_len), t._betas(1)[0]
+            m = t.superstep()
+            me = t.eager_superstep(ts, ast, rs, eps, beta)
+        else:
+            chunk, _ = t.actor.rollout(getattr(t, "actor_model",
+                                               t.train_state.model))
+            beta = t._beta().to(dev)
+            m = t.learn(chunk)
+            check(not any(gather.LAUNCHES.values()),
+                  f"{tag}: a replay ran a wrapper: {gather.LAUNCHES}")
+            me = t.eager_step(ts, rs, chunk, beta)
+        metric_diff = max([metric_diff] + [
+            (v.double() - me[k].double()).abs().max().item()
+            for k, v in m.items()])
+    torch.cuda.synchronize()
+    diffs = state_diffs((t.train_state, t.actor_state if fused else None,
+                         t.replay_state), (ts, ast, rs))
+    worst = max(max(diffs.values()), metric_diff)
+    check(worst == 0.0, f"{tag}: graph vs eager over {PARITY_CHUNKS} "
+          f"chunks, max abs difference {worst} "
+          f"({ {k: v for k, v in diffs.items() if v} }, metrics "
+          f"{metric_diff})")
+    check(t.replay_state.cursor.item() == t.replay_state.t
+          and t.train_state.counter.item() == t.train_state.updates
+          == t.updates_done, f"{tag}: device cursor / counter against the "
+          "host's mirrors")
+    del ts, rs, ast
+    rates = ""
+    if case.get("rates", True):
+        captured = _host_rates(t, fused)
+    replays = t.graph.replays
+    if getattr(t, "logger", None) is not None:
+        t.logger.close()
+    del t
+    torch.cuda.empty_cache()
+    if case.get("rates", True):
+        e = make(False)
+        check(e.graph is None, f"{tag}: capture=False built a graph")
+        while e.updates_done < (GraphedStep.WARMUP + 1) * K:
+            (e.superstep if fused else e.train_chunk)()
+        eager = _host_rates(e, fused)
+        if getattr(e, "logger", None) is not None:
+            e.logger.close()
+        del e
+        torch.cuda.empty_cache()
+        rates = (f"; captured: {_rates_text(captured)}; op by op: "
+                 f"{_rates_text(eager)}")
+    print(f"{tag}: graph kernel nodes {nodes} ({K} updates a chunk, "
+          f"{replays} replays); {PARITY_CHUNKS} replays == the eager body "
+          f"from clones over {len(diffs)} tensors and generator states and "
+          f"the metrics: max abs difference {worst} (cudnn.deterministic)"
+          f"{rates}; {time.perf_counter() - t0:.1f} s  [{smi}]", flush=True)
+    return nodes
+
+
+def phase_host_graphs(smi: str) -> dict:
+    """Phase 16: `host_graph_case` for every entry of HOST_GRAPH_CASES
+    (config #5, on a one-rank NCCL group, runs in phase 12). Returns
+    {tag: graph kernel nodes}."""
+    import torch
+    from rltime_tpu_torch.parallel.fused import FusedApexTrainer
+    from rltime_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    out = {}
+    try:
+        for case in HOST_GRAPH_CASES:
+            cfg = host_config(case)
+            fused = cfg["train"].get("trainer") == "fused"
+
+            def make(capture, cfg=cfg, fused=fused, case=case):
+                d = ROOT / "results" / ("chip_smoke_host_graph_" + "".join(
+                    c if c.isalnum() else "_" for c in case["tag"])
+                    + ("" if capture else "_eager"))
+                shutil.rmtree(d, ignore_errors=True)
+                cls = FusedApexTrainer if fused else Trainer
+                return cls(copy.deepcopy(cfg), str(d), device="cuda",
+                           capture=capture)
+
+            out[case["tag"]] = host_graph_case(case, make, smi)
+    finally:
+        cudnn.deterministic = deterministic
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def _chunks(rng, E, L, obs_shape, num_actions, lstm_size=0, n=6):
     import numpy as np
     out = []
@@ -1909,6 +2166,7 @@ def phase_cartpole():
     from rltime_tpu_torch import train
     from rltime_tpu_torch.ops import gather
     from rltime_tpu_torch.training import checkpoint as ckpt_lib
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     keys = {"episodes", "return_mean", "return_median", "return_min",
             "return_max", "checkpoint_step"}
     for preset, steps in (("cartpole_dqn", 8_192),
@@ -1916,22 +2174,27 @@ def phase_cartpole():
         result_dir = ROOT / "results" / f"chip_smoke_{preset}"
         shutil.rmtree(result_dir, ignore_errors=True)
         gather.reset_counts()
+        GraphedStep.debug = True
         t0 = time.perf_counter()
-        trainer = train.run([preset, "--device", "cuda", "--result-dir",
-                             str(result_dir),
-                             f"--train.total_env_steps={steps}",
-                             "--train.log_interval=2048"])
-        torch.cuda.synchronize()
+        try:
+            trainer = train.run([preset, "--device", "cuda", "--result-dir",
+                                 str(result_dir),
+                                 f"--train.total_env_steps={steps}",
+                                 "--train.log_interval=2048"])
+            torch.cuda.synchronize()
+        finally:
+            GraphedStep.debug = False
         wall = time.perf_counter() - t0
         n_upd = trainer.updates_done
         check(trainer.device.type == "cuda"
               and not trainer.replay_cfg.prioritized
               and trainer.replay_state.tree.shape == (1,),
               f"{preset}: not uniform replay on cuda")
-        check(n_upd > 0 and gather.LAUNCHES == {
+        launches, _ = counted_launches(trainer, preset, dict(gather.LAUNCHES))
+        check(n_upd > 0 and launches == {
             "union_gather": 0, "window_gather": n_upd}
             and not any(gather.PLAIN_CALLS.values()),
-            f"{preset}: {n_upd} updates, launches {gather.LAUNCHES}, plain "
+            f"{preset}: {n_upd} updates, launches {launches}, plain "
             f"{gather.PLAIN_CALLS}")
         loss = trainer.last_metrics["loss"].item()
         check(math.isfinite(loss), f"{preset}: loss {loss}")
@@ -1949,8 +2212,10 @@ def phase_cartpole():
                   f"{preset}: eval report {rep} (best={best})")
             reports[best] = rep
         print(f"{preset}: {trainer.actor.env_steps} env steps, {n_upd} "
-              f"updates in {wall:.2f} s (uniform replay, one window_gather "
-              f"per update), last loss {loss:.6g}; eval latest "
+              f"updates in {wall:.2f} s (uniform replay and the lr schedule "
+              f"on the device, one window_gather per update, "
+              f"{trainer.graph.replays} graph replays), last loss "
+              f"{loss:.6g}; eval latest "
               f"{json.dumps(reports[False])}; eval --best "
               f"{json.dumps(reports[True])}", flush=True)
 
@@ -2076,7 +2341,7 @@ def _state_equal(a, b):
 def _warm_chunks(trainer, chunks: int):
     """`chunks` more chunks of a host trainer (apex or default), timed by
     the host clock to a synchronise: (env-steps/s, act ms per chunk, ms
-    per update of the update phase)."""
+    per update of the insert+update phase)."""
     import torch
     lc = trainer.loop_cfg
     steps = chunks * lc.chunk_len * trainer.env.num_envs
@@ -2088,9 +2353,8 @@ def _warm_chunks(trainer, chunks: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ph = trainer.timers.pop()
-    upd = ph.get("update", ph.get("insert+update", 0.0))
     return (steps / wall, ph["act"] / chunks * 1e3,
-            upd / (chunks * lc.updates_per_chunk) * 1e3)
+            ph["insert+update"] / (chunks * lc.updates_per_chunk) * 1e3)
 
 
 def phase_apex_kernels(smi: str, kern: dict):
@@ -2137,6 +2401,7 @@ def phase_distribution(smi: str):
     from rltime_tpu_torch.parallel.fused import FusedApexTrainer
     from rltime_tpu_torch.parallel.mesh import identity_mesh, make_mesh
     from rltime_tpu_torch.training.trainer import Trainer
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     # bit-equality across runs needs deterministic cuDNN algorithms (the
@@ -2160,21 +2425,30 @@ def phase_distribution(smi: str):
                 f"--train.total_env_steps={p['steps']}"]
         gather.reset_counts()
         census.reset_counts()
+        GraphedStep.debug = True
         t0 = time.perf_counter()
-        tr = train.run(argv)
-        torch.cuda.synchronize()
+        try:
+            tr = train.run(argv)
+            torch.cuda.synchronize()
+        finally:
+            GraphedStep.debug = False
         wall = time.perf_counter() - t0
-        launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+        plain = dict(gather.PLAIN_CALLS)
+        launches, nodes = counted_launches(tr, p["preset"],
+                                           dict(gather.LAUNCHES))
         ents = census.entries()
-        phases = tr.timers.pop()
+        phases = _run_phases(tr, result_dir)
         n = p["updates"]
         check(isinstance(tr, ApexTrainer) and tr.mesh.backend == "nccl"
               and tr.updates_done == n and tr.global_env_steps == p["steps"],
               f"apex: {type(tr).__name__} on {tr.mesh}, {tr.updates_done} "
               "updates")
+        k = tr.loop_cfg.updates_per_chunk
         check(launches == {"union_gather": n, "window_gather": n}
+              and nodes == {"union_gather": k, "window_gather": k}
               and not any(plain.values()),
-              f"apex: launches {launches} in {n} updates, plain {plain}")
+              f"apex: launches {launches} in {n} updates (graph nodes "
+              f"{nodes}), plain {plain}")
         rs = tr.replay_state
         check(rs.storage["obs"].shape == (32, 4096, 84, 84)
               and rs.t == p["steps"] // 32, f"apex ring {rs.storage['obs'].shape}"
@@ -2195,16 +2469,18 @@ def phase_distribution(smi: str):
         check(sites == want, f"apex census {sites}, expected {want}:\n"
               + census.summarize(ents))
         print(f"{p['preset']} on a one-rank NCCL mesh: {p['steps']} env "
-              f"steps, {n} updates, launches {launches}; census: "
+              f"steps, {n} updates, launches {launches} (graph kernel nodes "
+              f"{nodes} x {tr.graph.replays} replays); census: "
               f"{n} gradient all-reduces of {4 * n_params} B, {n} metric "
               f"buffers of 20 B, {n + p['chunks']} max_priority MAXes of 4 B, "
               "nothing else; last loss "
               f"{tr.last_metrics['loss'].item():.6g}", flush=True)
-        upd_s = phases["update"]
+        upd_s = phases["insert+update"]
         print(f"{p['preset']} rates: {p['steps'] / wall:.1f} env-steps/s over "
-              f"the {wall:.3f} s run (act {phases['act']:.3f} s, insert "
-              f"{phases['insert']:.3f} s, update {upd_s:.3f} s); "
-              f"{n / upd_s:.2f} updates/s over the update phase "
+              f"the {wall:.3f} s run (act {phases['act']:.3f} s, warmup "
+              f"inserts {phases.get('insert', 0.0):.3f} s, insert+update "
+              f"{upd_s:.3f} "
+              f"s); {n / upd_s:.2f} updates/s over the insert+update phase "
               f"({upd_s / n * 1e3:.2f} ms/update)  [{smi}]", flush=True)
 
         # 2) the same run through the identity mesh: the learner bit-equal
@@ -2250,6 +2526,23 @@ def phase_distribution(smi: str):
                   for tag, v in busy.items()) + f"  [{smi}]", flush=True)
         del tr, ref
         torch.cuda.empty_cache()
+
+        # 2b) config #5's captured step against its eager body, and the
+        # rates of both, on the NCCL mesh (phase 16's checks)
+        apex_case = dict(preset=APEX_PATH["preset"],
+                         tag="config #5 apex_multihost_counting (NCCL)",
+                         per_update={"union_gather": 1, "window_gather": 1})
+        acfg = host_config(apex_case)
+
+        def make(capture):
+            d = ROOT / "results" / ("chip_smoke_apex_graph"
+                                    + ("" if capture else "_eager"))
+            shutil.rmtree(d, ignore_errors=True)
+            return ApexTrainer(copy.deepcopy(acfg), str(d), device=dev,
+                               mesh=mesh, capture=capture)
+
+        census.reset_counts()
+        apex_nodes = host_graph_case(apex_case, make, smi)
 
         # 3) the fused trainer through the NCCL mesh, captured with its
         # all-reduces: a replayed superstep with no host sync, counted by
@@ -2303,7 +2596,7 @@ def phase_distribution(smi: str):
             det)
 
     # 4) config #2 with async acting beside the synchronous trainer:
-    # warm windows of 8 chunks after the warmup and 2 trained chunks
+    # warm windows of 8 chunks after the warmup and the capture
     rates = {}
     for tag, extra in (("sync", []), ("async", ["train.async_acting=true"])):
         cfg = apply_overrides(load_config(DQN_PATH["preset"]), [
@@ -2312,7 +2605,8 @@ def phase_distribution(smi: str):
         d = ROOT / "results" / f"chip_smoke_pong_{tag}"
         shutil.rmtree(d, ignore_errors=True)
         tr = Trainer(cfg, str(d), device="cuda")
-        while tr.updates_done < 4:
+        # past the capture: the windows time replays
+        while tr.updates_done < 4 or tr.graph.graph is None:
             tr.train_chunk()
         if tr.pool is not None:
             tr.pool.depth_sum = tr.pool.gets = 0
@@ -2357,7 +2651,7 @@ def phase_distribution(smi: str):
           "subprocess): 4,096 env steps, 6 updates, checkpoint written",
           flush=True)
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, apex_nodes
 
 
 def _trace_split(trace_dir: Path, chunks: int):
@@ -2400,6 +2694,7 @@ def phase_atari_native(smi: str):
     from rltime_tpu_torch.ops import gather
     from rltime_tpu_torch.parallel.apex import ApexTrainer
     from rltime_tpu_torch.utils import profiling
+    from rltime_tpu_torch.utils.graphs import GraphedStep
     t_phase = time.perf_counter()
     backend = bindings.atari_backend()
     print(f"atari_native backend: {backend}", flush=True)
@@ -2486,13 +2781,20 @@ def phase_atari_native(smi: str):
     result_dir = ROOT / "results" / f"chip_smoke_{p['tag']}"
     shutil.rmtree(result_dir, ignore_errors=True)
     gather.reset_counts()
+    GraphedStep.debug = True
     t0 = time.perf_counter()
-    tr = train.run([p["preset"], "--device", "cuda", "--result-dir",
-                    str(result_dir), f"--train.warmup_env_steps={p['warmup']}",
-                    f"--train.total_env_steps={p['steps']}", *p["overrides"]])
-    torch.cuda.synchronize()
+    try:
+        tr = train.run([p["preset"], "--device", "cuda", "--result-dir",
+                        str(result_dir),
+                        f"--train.warmup_env_steps={p['warmup']}",
+                        f"--train.total_env_steps={p['steps']}",
+                        *p["overrides"]])
+        torch.cuda.synchronize()
+    finally:
+        GraphedStep.debug = False
     wall = time.perf_counter() - t0
-    launches, plain = dict(gather.LAUNCHES), dict(gather.PLAIN_CALLS)
+    plain = dict(gather.PLAIN_CALLS)
+    launches, _ = counted_launches(tr, p["tag"], dict(gather.LAUNCHES))
     n = p["updates"]
     check(isinstance(tr, ApexTrainer) and tr.updates_done == n
           and tr.global_env_steps == p["steps"]
@@ -2510,7 +2812,7 @@ def phase_atari_native(smi: str):
     print(f"{p['tag']}: {p['steps']} env steps, {n} updates, launches "
           f"{launches}, plain calls {plain}; {p['steps'] / wall:.1f} "
           f"env-steps/s over the {wall:.3f} s run (act {ph['act']:.3f} s, "
-          f"update {ph['update']:.3f} s)  [{smi}]", flush=True)
+          f"insert+update {ph['insert+update']:.3f} s)  [{smi}]", flush=True)
     by_path[p["tag"]] = launches
     del tr
     torch.cuda.empty_cache()
@@ -2565,6 +2867,7 @@ def main() -> int:
     phase_fused_bench_shape(smi)
     fused_others = phase_fused_others()
     phase_fused_graph_parity(smi)
+    host_nodes = phase_host_graphs(smi)
     torch.cuda.empty_cache()
     bench_launches = phase_bench_superstep(smi)
     phase_small_parity()
@@ -2578,7 +2881,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cartpole()
     phase_fused_options(smi)
-    apex_launches = phase_distribution(smi)
+    apex_launches, apex_nodes = phase_distribution(smi)
+    host_nodes[f"{APEX_PATH['preset']} on one NCCL rank"] = apex_nodes
 
     def entry(name, source, replaces, by_path, main_path, main_tag, raw_tag,
               beside):
@@ -2618,6 +2922,8 @@ def main() -> int:
                 DQN_OPTIONS_PATH["tag"]: option_launches[name],
                 DQN_LAMBDA_PATH["tag"]: lambda_launches[name],
                 APEX_PATH["preset"]: apex_launches[name],
+                **{f"{tag} (graph nodes per replay)": n[name]
+                   for tag, n in host_nodes.items()},
                 **{tag: n[name] for tag, n in native_launches.items()},
                 **{tag: n[name] for tag, n in bench_launches.items()}}
 

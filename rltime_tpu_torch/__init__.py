@@ -43,6 +43,10 @@ distribution layer over `torch.distributed`.
     `python -m rltime_tpu_torch.train_distributed` (N ranks) and
     `python -m rltime_tpu_torch.dryrun` (every training leg once, at
     tiny shapes, on d ranks).
+On the card every trainer runs its step as one CUDA-graph replay
+(`utils/graphs.py`, the counterpart of a jitted XLA program): the fused
+superstep, and the host trainers' insert + K updates of a chunk, with
+the replay cursor and the update count on the device.
 
     python -m rltime_tpu_torch.train minatar_breakout_dqn   # on the card
     python -m rltime_tpu_torch.train minatar_breakout_dqn --device cpu \

@@ -11,10 +11,11 @@ steps. The synchronous path (the Trainer calling `Actor.rollout` inline)
 stays the default: async acting trades exact reproducibility for
 overlap.
 
-Weights. The learner updates its parameters in place, so the pool's
-actor acts on its OWN copy: `set_params` copies the learner's model on
-the learner's stream (after its optimizer step) and swaps the copy in
-under a lock; the actor takes the current copy at the start of a chunk
+Weights. The learner updates its parameters in place (on a card by a
+CUDA-graph replay on the learner's stream), so the pool's actor acts on
+its OWN copy: `set_params` copies the learner's model on the learner's
+stream, after the step that updated it, and swaps the copy in under a
+lock; the actor takes the current copy at the start of a chunk
 and acts the whole chunk with it, so no chunk sees half-copied weights.
 On a card the actor thread runs on a stream of its own: it waits on an
 event recorded after the copy before it uses a model, the learner waits
@@ -23,11 +24,17 @@ tensor that crosses is marked used on the other stream
 (`record_stream`), so the caching allocator does not hand its memory out
 while the other stream may still read it.
 
+While the learner captures its step into a CUDA graph, the actor must
+make no CUDA call (in the capture's global mode that call would fail):
+`paused()` holds the lock the actor takes around each chunk's work on
+the card, so the actor waits between chunks.
+
 An exception in the actor thread is raised on the learner side by the
 next `get_chunk`; `close()` stops the thread, drains the queue and joins.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import queue
 import threading
@@ -53,6 +60,7 @@ class AsyncActorPool:
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
         self._stop = threading.Event()
         self._lock = threading.Lock()
+        self._acting = threading.Lock()     # held around a chunk's CUDA work
         self._exc: Optional[BaseException] = None
         self.version = 0            # publishes so far
         self.gets = 0               # chunks handed to the learner
@@ -100,6 +108,13 @@ class AsyncActorPool:
             self.version += 1
             self._params = (fresh, ready, self.version)
 
+    @contextlib.contextmanager
+    def paused(self):
+        """No chunk of the actor runs on the card inside this block: it
+        waits for the chunk in progress, then holds the actor back."""
+        with self._acting:
+            yield
+
     @property
     def env_steps(self) -> int:
         return self.actor.env_steps
@@ -142,15 +157,16 @@ class AsyncActorPool:
             if self._cuda:
                 torch.cuda.set_device(self._device)
             while not self._stop.is_set():
-                model, version = self._take_params()
-                done = None
-                if self._cuda:
-                    with torch.cuda.stream(self._stream):
+                with self._acting:
+                    model, version = self._take_params()
+                    done = None
+                    if self._cuda:
+                        with torch.cuda.stream(self._stream):
+                            chunk, info = self.actor.rollout(model)
+                            done = torch.cuda.Event()
+                            done.record(self._stream)
+                    else:
                         chunk, info = self.actor.rollout(model)
-                        done = torch.cuda.Event()
-                        done.record(self._stream)
-                else:
-                    chunk, info = self.actor.rollout(model)
                 info = dict(info, params_version=version)
                 while not self._stop.is_set():
                     try:

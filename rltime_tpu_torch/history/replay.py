@@ -19,8 +19,8 @@ Differences from the JAX version, by design:
     changes between replays, so it keeps the cursor as a device tensor
     too (`ReplayState.cursor`, the JAX version's `t` in the scan carry)
     and inserts and samples with `replay_insert_device` and
-    `replay_sample_indices_device`: the same columns, leaves and
-    weights, nothing read back to the host.
+    `replay_sample_indices_device` (PER and uniform): the same columns,
+    leaves and weights, nothing read back to the host.
   * Window gathers run on the CUDA kernels of `ops.gather`: all the
     strips, single columns and the R2D2 frame sequence of one update in
     one `window_gather_multi` launch (K1, `replay_gather_segments`), the
@@ -257,7 +257,7 @@ def replay_sample_indices(cfg: ReplayConfig, state: ReplayState,
     (B,) in [0, max(hi-lo, 1)), envs (B,) in [0, E)), the offsets drawn
     first. Returns dict(env int32, col int32, leaf int64, weight f32,
     num_valid)."""
-    E, T = cfg.num_envs, cfg.steps_per_env
+    E = cfg.num_envs
     lo, hi = valid_range(cfg, state.t)
     num_valid = (hi - lo) * E
     tree = state.tree
@@ -267,13 +267,7 @@ def replay_sample_indices(cfg: ReplayConfig, state: ReplayState,
                                generator=generator, device=tree.device),
                  torch.randint(0, E, (batch,), generator=generator,
                                device=tree.device))
-        offset, env = (x.long() for x in u)
-        col = torch.remainder(lo + offset, T)
-        return dict(env=env.to(torch.int32), col=col.to(torch.int32),
-                    leaf=_flat_leaf(cfg, env, col),
-                    weight=torch.ones((batch,), dtype=torch.float32,
-                                      device=tree.device),
-                    num_valid=num_valid)
+        return _uniform_sample(cfg, lo, u, num_valid, tree.device)
     return _per_sample(cfg, tree, batch, beta, num_valid, generator, u)
 
 
@@ -284,17 +278,43 @@ def replay_sample_indices_device(cfg: ReplayConfig, state: ReplayState,
     """`replay_sample_indices` at the device cursor `state.cursor`: the
     valid range and `num_valid` (a 0-d int64 tensor here) are computed on
     the device, so nothing is read back to the host and a captured step
-    samples from the cursor of each replay. PER only: the uniform
-    sampler's column bound is a host int (`torch.randint`)."""
-    if not cfg.prioritized:
-        raise ValueError("the device-cursor sampler is the PER sampler; "
-                         "uniform replay draws its columns below a host "
-                         "bound (ROADMAP.md queue 1 item 3)")
+    samples from the cursor of each replay.
+
+    Uniform replay draws the host route's pair, column offsets first:
+    an injected `u` gives the host route's result bit for bit. A fresh
+    offset cannot come from `torch.randint` below the span
+    max(hi - lo, 1), which is a device value here: it is a draw from
+    [0, 2^62) reduced modulo the span, whose bias (each offset's
+    probability off by at most span / 2^62, under 1e-12 for any ring a
+    card holds) no run can see."""
     t = state.cursor
     lo = torch.clamp(t - cfg.steps_per_env + cfg.lookback, min=0)
     hi = torch.maximum(t - cfg.horizon, lo)
     num_valid = (hi - lo) * cfg.num_envs
+    device = state.tree.device
+    if not cfg.prioritized:
+        if u is None:
+            span = torch.clamp(hi - lo, min=1)
+            u = (torch.remainder(torch.randint(0, 2 ** 62, (batch,),
+                                               generator=generator,
+                                               device=device), span),
+                 torch.randint(0, cfg.num_envs, (batch,),
+                               generator=generator, device=device))
+        return _uniform_sample(cfg, lo, u, num_valid, device)
     return _per_sample(cfg, state.tree, batch, beta, num_valid, generator, u)
+
+
+def _uniform_sample(cfg: ReplayConfig, lo, u, num_valid,
+                    device: torch.device):
+    """The uniform draw of both routes at the valid range's start `lo`
+    (a host int or a 0-d tensor): `u` = (column offsets, lanes)."""
+    offset, env = (x.long() for x in u)
+    col = torch.remainder(lo + offset, cfg.steps_per_env)
+    return dict(env=env.to(torch.int32), col=col.to(torch.int32),
+                leaf=_flat_leaf(cfg, env, col),
+                weight=torch.ones((offset.shape[0],), dtype=torch.float32,
+                                  device=device),
+                num_valid=num_valid)
 
 
 def _per_sample(cfg: ReplayConfig, tree: torch.Tensor, batch: int, beta,

@@ -20,7 +20,14 @@ runs:
 
 One rank is the degenerate case (`python -m rltime_tpu_torch.train
 apex_multihost_counting`); `python -m rltime_tpu_torch.train_distributed`
-starts it on every rank. Checkpoints: the lead writes the learner, every
+starts it on every rank. Each post-warmup chunk's sharded insert and K
+data-parallel updates are one step (`mesh.make_sharded_insert_and_
+update_step`, where JAX jits the sharded insert and the K-update step):
+on a card, after two eager chunks, the third captures it into a CUDA
+graph and every later chunk replays it, the NCCL all-reduces of a
+one-rank group included (the host `Trainer`'s `ChunkStep`: the replay
+cursor and update count on the device). Over gloo (the CPU), and with
+`capture=False`, the same body runs op by op. Checkpoints: the lead writes the learner, every
 rank its sidecar (actor generator, chunk count, sampling generator and,
 with `checkpoint_replay`, its replay shard). Best-checkpoint tracking
 pools every rank's episodes.
@@ -43,14 +50,16 @@ from rltime_tpu_torch.exploration.epsilon import epsilon_ladder
 from rltime_tpu_torch.history.replay import ReplayConfig, replay_init
 from rltime_tpu_torch.parallel.mesh import (
     Mesh, load_sidecar, make_mesh, make_sharded_insert,
-    make_sharded_update_step, pool_process_stats, save_sidecar,
+    make_sharded_insert_and_update_step, pool_process_stats, save_sidecar,
 )
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
-from rltime_tpu_torch.training.learner import AlgoConfig, make_train_state
+from rltime_tpu_torch.training.learner import (
+    AlgoConfig, make_train_state, use_device_counter,
+)
 from rltime_tpu_torch.training.r2d2 import r2d2_horizon
 from rltime_tpu_torch.training.trainer import (
-    TrainLoopConfig, _mk_model_cfg, model_in_shape, replay_fields,
-    score_scalars,
+    ChunkStep, TrainLoopConfig, _mk_model_cfg, model_in_shape,
+    replay_fields, score_scalars,
 )
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
@@ -71,11 +80,15 @@ class _GlobalLadder:
         return self._eps
 
 
-class ApexTrainer:
+class ApexTrainer(ChunkStep):
+    """One rank of the Ape-X trainer (see the module doc); `capture=False`
+    runs the step op by op on a card too (not a config key)."""
+
     def __init__(self, config: Dict[str, Any], result_dir: str,
                  device: str | torch.device = "cuda",
                  mesh: Optional[Mesh] = None,
-                 logger: Optional[RunLogger] = None):
+                 logger: Optional[RunLogger] = None,
+                 capture: bool = True):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(self.device)
         d, rank = self.mesh.size, self.mesh.rank
@@ -114,6 +127,13 @@ class ApexTrainer:
         self.replay_state = replay_init(
             self.replay_cfg, replay_fields(spec, self.model_cfg, prio),
             self.device)
+        self.replay_state.cursor = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
+        graphed = capture and self.device.type == "cuda"
+        if graphed and self.mesh.distributed and self.mesh.backend != "nccl":
+            raise ValueError(
+                f"a CUDA graph captures NCCL collectives only; this mesh "
+                f"is {self.mesh.backend}")
 
         exp_cfg = dict(config.get("exploration", {"type": "epsilon_greedy"}))
         if exp_cfg.get("mode") == "ladder":
@@ -134,15 +154,17 @@ class ApexTrainer:
         self.train_state = make_train_state(
             self.model_cfg, self.algo_cfg,
             model_in_shape(spec, self.frame_stack, self.model_cfg),
-            fold_in_str(seed, "learner"), self.device)
+            fold_in_str(seed, "learner"), self.device, capturable=graphed)
         self.train_state.generator = self.mesh.shard_generator(
             self.train_state.generator)
+        use_device_counter(self.train_state, self.algo_cfg)
         self._insert = make_sharded_insert(self.replay_cfg, self.mesh)
-        self._update = make_sharded_update_step(
+        self._insert_update = make_sharded_insert_and_update_step(
             self.model_cfg, self.algo_cfg, self.replay_cfg, self.frame_stack,
             self.flatten, self.mesh,
             num_updates=self.loop_cfg.updates_per_chunk,
             channels_last=self.model_cfg.channels_last)
+        self._make_graph(graphed)
         # the actor's own weights, published from the learner
         self.actor_model = copy.deepcopy(
             self.train_state.model).requires_grad_(False)
@@ -166,13 +188,16 @@ class ApexTrainer:
         # every rank steps its lanes in lockstep with the others
         return self.actor.env_steps * self.mesh.size
 
-    def _beta(self) -> float:
-        # annealed on the pre-update global step counter (the chunk just
-        # inserted is counted), the point Trainer samples it
+    def _beta(self) -> torch.Tensor:
+        """The PER exponent on the pre-update global step counter (the
+        chunk just inserted is counted), the point Trainer samples it; a
+        0-d float32 tensor on the host, as Trainer's."""
         a = self.algo_cfg
         frac = min(self.global_env_steps
                    / max(self.loop_cfg.total_env_steps, 1), 1.0)
-        return a.per_beta_start + frac * (a.per_beta_end - a.per_beta_start)
+        return torch.tensor(a.per_beta_start + frac * (a.per_beta_end
+                                                       - a.per_beta_start),
+                            dtype=torch.float32)
 
     def publish(self) -> None:
         """Copy the learner's weights into the actor's model."""
@@ -180,21 +205,19 @@ class ApexTrainer:
 
     def train_chunk(self, draws=None):
         """One acting chunk, its insert and (after warmup) K updates.
-        `draws`: this rank's K update draws (tests)."""
+        `draws`: this rank's K update draws (tests; the eager body)."""
         with self.timers.phase("act"):
             chunk, _ = self.actor.rollout(self.actor_model)
-        with self.timers.phase("insert", sync=self.device):
-            self.replay_state = self._insert(self.replay_state, chunk)
         self._chunks += 1
         metrics = {}
         if self.global_env_steps >= self.loop_cfg.warmup_env_steps:
-            with self.timers.phase("update", sync=self.device):
-                self.train_state, self.replay_state, metrics = self._update(
-                    self.train_state, self.replay_state, self._beta(), draws)
-            self.updates_done += self.loop_cfg.updates_per_chunk
-            self.last_metrics = metrics
+            with self.timers.phase("insert+update", sync=self.device):
+                metrics = self.learn(chunk, draws)
             if self._chunks % self.publish_interval == 0:
                 self.publish()
+        else:
+            with self.timers.phase("insert", sync=self.device):
+                self.warm_insert(chunk)
         return metrics
 
     # ----- checkpointing -----

@@ -78,7 +78,6 @@ from rltime_tpu_torch.history.replay import (
     ReplayConfig, replay_in_place, replay_init, replay_insert_at_cursor,
 )
 from rltime_tpu_torch.models.policy import ModelConfig
-from rltime_tpu_torch.parallel import census
 from rltime_tpu_torch.parallel.mesh import (
     Mesh, identity_mesh, load_sidecar, make_mesh, make_sharded_insert,
     pool_process_stats, save_sidecar, shard_update,
@@ -86,7 +85,7 @@ from rltime_tpu_torch.parallel.mesh import (
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
 from rltime_tpu_torch.training.learner import (
     AlgoConfig, make_insert_and_update_step, make_train_state,
-    make_update_step,
+    make_update_step, use_device_counter,
 )
 from rltime_tpu_torch.training.r2d2 import (
     make_r2d2_update_step, r2d2_horizon,
@@ -207,12 +206,13 @@ def make_warm_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
 def state_diffs(a, b) -> Dict[str, float]:
     """Max abs difference of every tensor and generator state of two
     (train_state, actor_state, replay_state) triples of one shape: the
-    parameters and target, the optimizer's state, the learner's update
-    counter, the rings, tree, max_priority and cursor, the actor's env
-    state, carry, running returns, stat rings (the spill slot left out)
-    and ring cursor, and the states of the learner's, the envs' and the
-    actor's generators. For the checks that hold a graph replay against
-    the eager body."""
+    parameters and target, the optimizer's state (its lr tensors too),
+    the learner's update counter and generator, the rings, tree,
+    max_priority and cursor, and, where the actor state is not None (the
+    host trainers keep theirs off the graph), the actor's env state,
+    carry, running returns, stat rings (the spill slot left out), ring
+    cursor and the envs' and actor's generators. For the checks that hold
+    a graph replay against the eager body."""
     def pairs(ts, ast, rs):
         out = {f"model.{k}": v for k, v in ts.model.state_dict().items()}
         out.update({f"target.{k}": v
@@ -220,10 +220,15 @@ def state_diffs(a, b) -> Dict[str, float]:
         for i, st in enumerate(ts.optimizer.state.values()):
             out.update({f"optimizer.{i}.{k}": v for k, v in st.items()
                         if isinstance(v, torch.Tensor)})
+        for i, g in enumerate(ts.optimizer.param_groups):
+            if isinstance(g["lr"], torch.Tensor):
+                out[f"optimizer.lr.{i}"] = g["lr"]
         out.update({f"ring.{k}": v for k, v in rs.storage.items()})
         out.update(tree=rs.tree, max_priority=rs.max_priority,
                    cursor=rs.cursor, counter=ts.counter,
                    generator=ts.generator.get_state())
+        if ast is None:
+            return out
         for k, v in ast.state_dict().items():
             if isinstance(v, dict):
                 out.update({f"actor.{k}.{n}": x for n, x in v.items()})
@@ -318,12 +323,6 @@ class FusedApexTrainer:
             else self.algo_cfg.n_step,
             chunk_len=1 if interleave else self.loop_cfg.chunk_len,
             **config.get("replay", {}))
-        if not self.replay_cfg.prioritized:
-            raise ValueError(
-                "the fused trainer keeps its replay cursor on the device, "
-                "where only the PER sampler draws (uniform replay draws "
-                "its columns below a host bound: ROADMAP.md queue 1 item "
-                "3); use replay.prioritized=true or the host Trainer")
         self.flatten = len(spec.obs_shape) == 1
         prio = self.replay_cfg.use_inserted_priorities
         self.replay_state = replay_init(
@@ -350,8 +349,7 @@ class FusedApexTrainer:
             fold_in_str(seed, "learner"), self.device, capturable=graphed)
         self.train_state.generator = self.mesh.shard_generator(
             self.train_state.generator)
-        self.train_state.counter = torch.zeros((), dtype=torch.int64,
-                                               device=self.device)
+        use_device_counter(self.train_state, self.algo_cfg)
         L = self.loop_cfg.chunk_len
         self._super = make_superstep(
             self.env, self.model_cfg, self.algo_cfg, self.replay_cfg, L,
@@ -370,7 +368,6 @@ class FusedApexTrainer:
                 generators=[self.train_state.generator,
                             *self.actor_state.generators()])
             self._graph_states = None
-            self._replay_census: Dict = {}
         self.exploration = build(config.get(
             "exploration", {"type": "epsilon_greedy"}))
         self.logger = logger or (RunLogger(result_dir, config)
@@ -423,26 +420,18 @@ class FusedApexTrainer:
 
     def _replay(self, eps: torch.Tensor, beta: torch.Tensor):
         """One superstep through the graph: the first WARMUP calls run the
-        body eagerly, the next captures it, every later one replays it.
-        The census counts the collectives the capture recorded once more
-        for every later replay."""
+        body eagerly, the next captures it, every later one replays it."""
         g = self.graph
         states = (self.train_state, self.actor_state, self.replay_state)
         if g.graph is None:
-            before = dict(census.COUNTS)
             out = g(eps, beta)
             if g.graph is not None:         # this call captured
                 self._graph_states = states
-                self._replay_census = {
-                    k: n - before.get(k, 0) for k, n in census.COUNTS.items()
-                    if n > before.get(k, 0)}
             return out
         if any(a is not b for a, b in zip(states, self._graph_states)):
             raise RuntimeError("the graph holds the states it captured; "
                                "this trainer's were replaced since")
-        out = g(eps, beta)
-        census.add(self._replay_census)
-        return out
+        return g(eps, beta)
 
     def superstep(self, draws=None):
         """One dispatch: S full supersteps, or one warmup act+insert.

@@ -244,6 +244,21 @@ def shard_update(update_step, mesh: Mesh):
     return step
 
 
+def _sharded_one(model_cfg, algo_cfg, local_replay_cfg, frame_stack: int,
+                 flatten: bool, mesh: Mesh, channels_last: bool):
+    """One data-parallel update: the local FF or R2D2 update built with
+    `mesh`, through `shard_update`."""
+    from rltime_tpu_torch.training.learner import make_update_step
+    from rltime_tpu_torch.training.r2d2 import make_r2d2_update_step
+    if algo_cfg.algo == "r2d2":
+        local = make_r2d2_update_step(model_cfg, algo_cfg, local_replay_cfg,
+                                      frame_stack, flatten, mesh=mesh)
+    else:
+        local = make_update_step(algo_cfg, local_replay_cfg, frame_stack,
+                                 flatten, channels_last, mesh=mesh)
+    return shard_update(local, mesh)
+
+
 def make_sharded_update_step(model_cfg, algo_cfg, local_replay_cfg,
                              frame_stack: int, flatten: bool, mesh: Mesh,
                              num_updates: int = 1,
@@ -255,15 +270,8 @@ def make_sharded_update_step(model_cfg, algo_cfg, local_replay_cfg,
     draws=None) -> (train_state, replay_state, last metrics) running
     `num_updates` updates; `draws`, a list of one keyword dict per
     update, injects this rank's draws (tests)."""
-    from rltime_tpu_torch.training.learner import make_update_step
-    from rltime_tpu_torch.training.r2d2 import make_r2d2_update_step
-    if algo_cfg.algo == "r2d2":
-        local = make_r2d2_update_step(model_cfg, algo_cfg, local_replay_cfg,
-                                      frame_stack, flatten, mesh=mesh)
-    else:
-        local = make_update_step(algo_cfg, local_replay_cfg, frame_stack,
-                                 flatten, channels_last, mesh=mesh)
-    one = shard_update(local, mesh)
+    one = _sharded_one(model_cfg, algo_cfg, local_replay_cfg, frame_stack,
+                       flatten, mesh, channels_last)
 
     def update(state, rstate, beta, draws=None):
         metrics = {}
@@ -273,6 +281,26 @@ def make_sharded_update_step(model_cfg, algo_cfg, local_replay_cfg,
         return state, rstate, metrics
 
     return update
+
+
+def make_sharded_insert_and_update_step(model_cfg, algo_cfg,
+                                        local_replay_cfg, frame_stack: int,
+                                        flatten: bool, mesh: Mesh,
+                                        num_updates: int = 1,
+                                        channels_last: bool = False):
+    """The sharded insert, then `num_updates` data-parallel updates, as
+    one step: what the JAX Ape-X trainer runs as its jitted sharded
+    insert and K-update step, and what one CUDA graph captures on a card
+    (a one-rank NCCL mesh or the identity mesh). Returns
+    fn(train_state, replay_state, chunk, beta, draws=None) ->
+    (train_state, replay_state, last metrics)
+    (`learner.make_insert_and_update_step`)."""
+    from rltime_tpu_torch.training.learner import make_insert_and_update_step
+    return make_insert_and_update_step(
+        local_replay_cfg,
+        _sharded_one(model_cfg, algo_cfg, local_replay_cfg, frame_stack,
+                     flatten, mesh, channels_last),
+        num_updates, insert=make_sharded_insert(local_replay_cfg, mesh))
 
 
 # ----- pooled statistics --------------------------------------------------

@@ -10,7 +10,10 @@ on-device `FusedApexTrainer` ("fused": every MinAtar preset) or the
 Ape-X `ApexTrainer` ("apex": `apex_multihost_counting`), here on one
 rank; `python -m rltime_tpu_torch.train_distributed` runs the last two
 on several. Dotted overrides compose onto the loaded config. `--device` defaults to `cuda` and raises when
-no card is present; the CPU runs only when asked for.
+no card is present; the CPU runs only when asked for. On the card each
+trainer runs its step as a CUDA-graph replay after two eager ones (the
+host trainers: a chunk's insert + K updates; the fused trainer: a whole
+superstep); the CPU runs the same steps op by op.
 """
 from __future__ import annotations
 

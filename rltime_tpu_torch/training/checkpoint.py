@@ -100,17 +100,25 @@ def load_train_state(train_state: TrainState, ckpt: Dict[str, Any]) -> None:
 def load_optimizer_state(optimizer: torch.optim.Optimizer,
                          saved: Dict[str, Any]) -> None:
     """`optimizer.load_state_dict(saved)`, keeping the live optimizer's
-    `capturable` flag (an Adam saved by an eager run loads into a
-    captured one, and the reverse: torch then places the step counts
-    where the live flag needs them) and its state tensors: where the
-    optimizer already holds state, the loaded values are copied into
-    those tensors."""
-    flags = [g.get("capturable") for g in optimizer.param_groups]
+    `capturable` and `foreach` flags (an Adam saved by an eager run loads
+    into a captured one, and the reverse: torch then places the step
+    counts where the live flag needs them), its state tensors and its
+    lr's kind: where the optimizer already holds state, the loaded values
+    are copied into those tensors, and a live lr tensor (the
+    device-counter route's schedule) takes the saved value in place."""
+    flags = [{k: g[k] for k in ("capturable", "foreach") if k in g}
+             for g in optimizer.param_groups]
+    lrs = [g["lr"] for g in optimizer.param_groups]
     saved = dict(saved, param_groups=[
-        dict(g, capturable=f) if f is not None else g
-        for g, f in zip(saved["param_groups"], flags)])
+        dict(g, **f) for g, f in zip(saved["param_groups"], flags)])
     live = {p: dict(st) for p, st in optimizer.state.items()}
     optimizer.load_state_dict(saved)
+    for group, lr in zip(optimizer.param_groups, lrs):
+        value = float(group["lr"])
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(value)
+            value = lr
+        group["lr"] = value
     for p, old in live.items():
         new = optimizer.state[p]
         for k, v in new.items():

@@ -17,9 +17,11 @@ PyTorch runs eagerly, so JAX's `lax.scan` over K updates is a plain
 loop (`make_insert_and_update_step`). The update mutates the model,
 optimizer and replay state in place and returns them for symmetry with
 the JAX API. The same update can be captured into a CUDA graph
-(`utils/benchprog.py`): with a device counter (`TrainState.counter`)
-and a device cursor (`ReplayState.cursor`) it reads no host value that
-changes between updates, and there Adam is `capturable`.
+(`utils/benchprog.py`, the trainers): with a device counter
+(`TrainState.counter`, `use_device_counter`) and a device cursor
+(`ReplayState.cursor`) it reads no host value that changes between
+updates, the linear lr schedule included, and there Adam is
+`capturable`.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ import torch
 
 from rltime_tpu_torch.history.replay import (
     ReplayConfig, ReplayState, frame_stack_union_gather,
-    frame_stack_union_gather_nhwc, replay_gather_segments, replay_insert,
-    replay_sample_indices, replay_sample_indices_device,
+    frame_stack_union_gather_nhwc, replay_gather_segments,
+    replay_insert_at_cursor, replay_sample_indices,
+    replay_sample_indices_device,
     replay_update_priorities, sequence_stack_gather,
 )
 from rltime_tpu_torch.models.policy import ModelConfig, QPolicy
@@ -110,7 +113,9 @@ class CenteredRMSProp(torch.optim.Optimizer):
 
     with zero initial `mu` and `nu` and eps INSIDE the root;
     `torch.optim.RMSprop` puts eps outside it. `mu` and `nu` live in the
-    optimizer's per-parameter state, so checkpoints carry them."""
+    optimizer's per-parameter state, so checkpoints carry them. The lr
+    may be a 0-d tensor (the device-counter route's schedule): the step
+    then reads it on the device."""
 
     def __init__(self, params, lr: float, decay: float, eps: float):
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
@@ -138,7 +143,15 @@ class CenteredRMSProp(torch.optim.Optimizer):
             torch._foreach_neg_(var)
             torch._foreach_add_(var, group["eps"])
             torch._foreach_sqrt_(var)
-            torch._foreach_addcdiv_(params, grads, var, value=-group["lr"])
+            lr = group["lr"]
+            if isinstance(lr, torch.Tensor):
+                # p - (lr g) / var, in addcdiv's order, the lr read on
+                # the device
+                step = torch._foreach_mul(grads, lr)
+                torch._foreach_div_(step, var)
+                torch._foreach_sub_(params, step)
+            else:
+                torch._foreach_addcdiv_(params, grads, var, value=-lr)
 
 
 def make_optimizer(cfg: AlgoConfig, params,
@@ -165,6 +178,42 @@ def learning_rate(cfg: AlgoConfig, count: int) -> float:
         return cfg.lr
     frac = min(count, cfg.lr_decay_updates) / cfg.lr_decay_updates
     return cfg.lr + (cfg.lr_end - cfg.lr) * frac
+
+
+def device_learning_rate(cfg: AlgoConfig, count: torch.Tensor
+                         ) -> torch.Tensor:
+    """`learning_rate` at a 0-d int64 count on the device, as a 0-d
+    float32 tensor: optax.linear_schedule's own float32 formula,
+    (lr - lr_end) * (1 - min(count, N) / N) + lr_end."""
+    n = cfg.lr_decay_updates
+    frac = 1 - torch.clamp(count, 0, n).to(torch.float32) / n
+    return (cfg.lr - cfg.lr_end) * frac + cfg.lr_end
+
+
+def use_device_counter(state: TrainState, cfg: AlgoConfig) -> TrainState:
+    """Put the update count on the device, for a step that a CUDA graph
+    holds or its eager body: `state.counter`, from `state.updates`. With
+    a linear lr decay every param group's lr becomes a 0-d float32
+    tensor beside the parameters, which `apply_gradients` writes from
+    the counter before each step. torch's Adam takes a tensor lr without
+    reading it back only where it is capturable, which torch allows on
+    the card alone: there an Adam made without `capturable` becomes
+    capturable (the eager body of a captured step), and on the CPU it
+    steps parameter by parameter (`foreach=False`, the CPU's default),
+    which reads the lr as a number. Call it before the first step."""
+    device = next(state.model.parameters()).device
+    state.counter = torch.tensor(state.updates, dtype=torch.int64,
+                                 device=device)
+    if cfg.lr_decay_updates > 0:
+        lr = device_learning_rate(cfg, state.counter)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr.clone()
+            if group.get("capturable") is False:
+                if device.type == "cpu":
+                    group["foreach"] = False
+                else:
+                    group["capturable"] = True
+    return state
 
 
 def make_train_state(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
@@ -262,10 +311,11 @@ def apply_gradients(cfg: AlgoConfig, state: TrainState,
 
     With a device counter (`state.counter`) the count is a device add
     and the sync a `torch.where` into each target tensor on
-    counter % target_update_freq == 0, as the JAX version's `jnp.where`:
-    nothing is read back, so a CUDA graph can hold it. A linear lr decay
-    would write a host float into the optimizer each update, so that
-    route refuses it.
+    counter % target_update_freq == 0, as the JAX version's `jnp.where`,
+    and a linear lr decay writes each group's lr tensor in place from
+    the count of updates before this one (`device_learning_rate`, as
+    optax reads its own count): nothing is read back, so a CUDA graph
+    can hold it.
 
     `mesh` (`parallel/mesh.py`): the gradients are averaged over its
     ranks in one all-reduce BEFORE the norm and the clip, where JAX's
@@ -285,12 +335,11 @@ def apply_gradients(cfg: AlgoConfig, state: TrainState,
                  for g in grads]
     for p, g in zip(params, grads):
         p.grad = g
-    if cfg.lr_decay_updates > 0:
-        if state.counter is not None:
-            raise ValueError(
-                "algo.lr_decay_updates > 0 on the device-counter route: "
-                "the schedule writes a host float each update, which a "
-                "CUDA graph would bake in (ROADMAP.md queue 1 item 3)")
+    if cfg.lr_decay_updates > 0 and state.counter is not None:
+        lr = device_learning_rate(cfg, state.counter)
+        for group in state.optimizer.param_groups:
+            group["lr"].copy_(lr)
+    elif cfg.lr_decay_updates > 0:
         for group in state.optimizer.param_groups:
             group["lr"] = learning_rate(cfg, state.updates)
     state.optimizer.step()
@@ -444,12 +493,15 @@ def make_insert_and_update_step(replay_cfg: ReplayConfig, update_step,
                                 num_updates: int, insert=None):
     """{chunk insert + K update steps}; returns the LAST step's metrics.
 
-    `draws`, a list of K keyword dicts (`u`, `taus`), injects each
-    update's random draws (tests). `insert(state, chunk)` replaces the
-    plain `replay_insert` (the sharded insert of `parallel/mesh.py`)."""
+    The insert is at the device cursor where the replay keeps one (the
+    body a CUDA graph holds), else at the host int
+    (`replay_insert_at_cursor`). `draws`, a list of K keyword dicts (`u`,
+    `taus`), injects each update's random draws (tests). `insert(state,
+    chunk)` replaces that insert (the sharded insert of
+    `parallel/mesh.py`)."""
     if insert is None:
         def insert(rstate, chunk):
-            return replay_insert(replay_cfg, rstate, chunk)
+            return replay_insert_at_cursor(replay_cfg, rstate, chunk)
 
     def fused(state, rstate, chunk, beta, draws=None):
         rstate = insert(rstate, chunk)

@@ -20,11 +20,29 @@ and writes `transcript.jsonl` beside the checkpoints.
 that keeps them (`episode_score_*`, Atari envs).
 Built from the same JSON config dict as the JAX trainer, plus an
 explicit `device` ("cuda" raises when no card is present).
+
+Where the JAX trainer jits {chunk insert + K updates} into one program
+per chunk, the port captures that step into a CUDA graph on the card
+(`utils/graphs.py:GraphedStep`): the first two trained chunks run it op
+by op, the third captures it, and every later chunk is one replay, after
+copying the chunk's fields (host arrays from the host, device tensors
+device to device) and its beta into the graph's static buffers. What
+the jitted step carries is state on the device, updated in place: the
+replay's write cursor (`ReplayState.cursor`; the warmup inserts go
+through it too), the update count (`TrainState.counter`, which also
+drives the target sync and the lr schedule), the tree and the rings;
+Adam is `capturable` and the learner's generator is registered with the
+graph. The host mirrors (`replay_state.t`, `train_state.updates`,
+`updates_done`) are bumped after each chunk. The CPU runs the same body
+op by op, as does `capture=False` on the card (a constructor argument,
+not a config key: the eager rate, injected draws) and the transcript
+route (`debug_outputs`); nothing falls back to it otherwise.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Dict, Optional
@@ -40,17 +58,18 @@ from rltime_tpu_torch.acting.pool import AsyncActorPool
 from rltime_tpu_torch.config.config import build
 from rltime_tpu_torch.device import resolve_device
 from rltime_tpu_torch.history.replay import (
-    ReplayConfig, replay_init, replay_insert,
+    ReplayConfig, replay_in_place, replay_init, replay_insert_at_cursor,
 )
 from rltime_tpu_torch.models.policy import ModelConfig
 from rltime_tpu_torch.training import checkpoint as ckpt_lib
 from rltime_tpu_torch.training.learner import (
     AlgoConfig, make_insert_and_update_step, make_train_state,
-    make_update_step,
+    make_update_step, use_device_counter,
 )
 from rltime_tpu_torch.training.r2d2 import (
     make_r2d2_update_step, r2d2_horizon,
 )
+from rltime_tpu_torch.utils.graphs import GraphedStep
 from rltime_tpu_torch.utils.loggers import RunLogger
 from rltime_tpu_torch.utils.prng import fold_in_str, make_generator
 from rltime_tpu_torch.utils.profiling import PhaseTimers, start_server, trace
@@ -135,10 +154,104 @@ def model_in_shape(spec, frame_stack: int, model_cfg: ModelConfig):
     return (frame_stack,) + tuple(spec.obs_shape)
 
 
-class Trainer:
+class ChunkStep:
+    """The post-warmup step of the host trainers (`Trainer`, and
+    `parallel/apex.py:ApexTrainer`): {chunk insert + K updates} at the
+    device cursor and counter, one CUDA-graph replay a chunk on the card.
+
+    The trainer sets `device`, `replay_cfg`, `loop_cfg`, `train_state`
+    (with its device counter), `replay_state` (with its device cursor),
+    `updates_done`, `_beta()` (a 0-d float32 tensor on the host),
+    `_insert(rstate, chunk)` (its insert at the cursor) and
+    `_insert_update` (`learner.make_insert_and_update_step` over that
+    insert) and, where a thread acts beside it, `pool` (paused while
+    the graph is captured), then calls `_make_graph`."""
+
+    def _make_graph(self, graphed: bool) -> None:
+        """`self.graph`: the step captured on the card (static buffers:
+        beta, then one (E, L, ...) buffer per ring field), or None (the
+        CPU, `capture=False`, transcripts)."""
+        self._fields = list(self.replay_state.storage)
+        self._graph_states = None
+        self.graph = None
+        if graphed:
+            E, L = self.replay_cfg.num_envs, self.replay_cfg.chunk_len
+            self.graph = GraphedStep(
+                self._body,
+                [torch.empty((), dtype=torch.float32, device=self.device)]
+                + [torch.empty((E, L) + tuple(ring.shape[2:]),
+                               dtype=ring.dtype, device=self.device)
+                   for ring in self.replay_state.storage.values()],
+                generators=[self.train_state.generator])
+
+    def eager_step(self, tstate, rstate, chunk: Dict[str, Any], beta,
+                   draws=None) -> Dict[str, torch.Tensor]:
+        """The post-warmup {insert + K updates} op by op on any states of
+        this trainer's shapes, in place (what the graph captures, and
+        what a replay is held against). Returns the last update's
+        metrics; the host counts are the caller's."""
+        with replay_in_place(rstate):
+            _, _, metrics = self._insert_update(tstate, rstate, chunk, beta,
+                                                draws)
+        return metrics
+
+    def _body(self, beta: torch.Tensor, *fields: torch.Tensor):
+        """One chunk's step on the trainer's own states: what the graph
+        captures."""
+        return self.eager_step(self.train_state, self.replay_state,
+                               dict(zip(self._fields, fields)), beta)
+
+    def learn(self, chunk: Dict[str, Any], draws=None):
+        """A post-warmup chunk's insert + K updates (a graph replay on the
+        card), then the host counts. Returns the last update's metrics.
+        `draws` (tests) needs the eager body."""
+        beta = self._beta()
+        if self.device.type == "cuda":
+            beta = beta.pin_memory().to(self.device, non_blocking=True)
+        if self.graph is None:
+            metrics = self.eager_step(self.train_state, self.replay_state,
+                                      chunk, beta, draws)
+        else:
+            if draws:
+                raise ValueError("injected draws need the eager body: build "
+                                 "the trainer with capture=False")
+            states = (self.train_state, self.replay_state)
+            if self._graph_states is not None and any(
+                    a is not b for a, b in zip(states, self._graph_states)):
+                raise RuntimeError("the graph holds the states it captured; "
+                                   "this trainer's were replaced since")
+            pool = getattr(self, "pool", None)
+            metrics = self.graph(beta, *[chunk[n] for n in self._fields],
+                                 quiet=pool.paused() if pool else None)
+            if self.graph.graph is not None:
+                self._graph_states = states
+            # the next replay overwrites them
+            metrics = {k: v.clone() for k, v in metrics.items()}
+        k = self.loop_cfg.updates_per_chunk
+        self.replay_state.t += self.replay_cfg.chunk_len
+        self.train_state.updates += k
+        self.updates_done += k
+        self.last_metrics = metrics
+        return metrics
+
+    def warm_insert(self, chunk: Dict[str, Any]) -> None:
+        """A warmup chunk's insert at the device cursor (op by op), then
+        the host cursor."""
+        with replay_in_place(self.replay_state):
+            self._insert(self.replay_state, chunk)
+        self.replay_state.t += self.replay_cfg.chunk_len
+
+
+class Trainer(ChunkStep):
+    """The host training loop (see the module doc). On a card each
+    post-warmup chunk's insert + K updates is a replay of the CUDA graph
+    `self.graph`, but for the transcript route's; `capture=False` runs
+    the same body op by op instead."""
+
     def __init__(self, config: Dict[str, Any], result_dir: str,
                  logger: Optional[RunLogger] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 capture: bool = True):
         self.device = resolve_device(device)
         self.config = config
         self.result_dir = result_dir
@@ -172,6 +285,8 @@ class Trainer:
         self.replay_state = replay_init(
             self.replay_cfg, replay_fields(spec, self.model_cfg, prio),
             self.device)
+        self.replay_state.cursor = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
 
         exploration = build(config.get(
             "exploration", {"type": "epsilon_greedy"}))
@@ -192,10 +307,13 @@ class Trainer:
                 compute_priorities=prio, gamma=self.algo_cfg.gamma)
         self.flatten = len(spec.obs_shape) == 1
 
+        graphed = (capture and self.device.type == "cuda"
+                   and not self.algo_cfg.debug_outputs)
         self.train_state = make_train_state(
             self.model_cfg, self.algo_cfg,
             model_in_shape(spec, self.frame_stack, self.model_cfg),
-            fold_in_str(seed, "learner"), self.device)
+            fold_in_str(seed, "learner"), self.device, capturable=graphed)
+        use_device_counter(self.train_state, self.algo_cfg)
         if r2d2:
             upd = make_r2d2_update_step(self.model_cfg, self.algo_cfg,
                                         self.replay_cfg, self.frame_stack,
@@ -204,8 +322,12 @@ class Trainer:
             upd = make_update_step(self.algo_cfg, self.replay_cfg,
                                    self.frame_stack, self.flatten,
                                    self.model_cfg.channels_last)
+        self._insert = functools.partial(replay_insert_at_cursor,
+                                         self.replay_cfg)
         self._insert_update = make_insert_and_update_step(
-            self.replay_cfg, upd, self.loop_cfg.updates_per_chunk)
+            self.replay_cfg, upd, self.loop_cfg.updates_per_chunk,
+            insert=self._insert)
+        self._make_graph(graphed)
 
         self.pool = None
         if self.loop_cfg.async_acting:
@@ -301,19 +423,15 @@ class Trainer:
         metrics = {}
         if self.actor.env_steps >= self.loop_cfg.warmup_env_steps:
             with self.timers.phase("insert+update", sync=self.device):
-                self.train_state, self.replay_state, metrics = \
-                    self._insert_update(self.train_state,
-                                        self.replay_state, chunk,
-                                        self._beta(), draws)
-            self.updates_done += self.loop_cfg.updates_per_chunk
-            self.last_metrics = metrics
+                metrics = self.learn(chunk, draws)
             self._chunks_trained += 1
             if (self.pool is not None and self._chunks_trained
                     % self.loop_cfg.publish_interval == 0):
+                # a copy on this stream, after the replay
                 self.pool.set_params(self.train_state.model)
         else:  # warmup: fill replay without updating
             with self.timers.phase("insert", sync=self.device):
-                replay_insert(self.replay_cfg, self.replay_state, chunk)
+                self.warm_insert(chunk)
         if self.transcript is not None:
             self.transcript.record_chunk(self.actor.env_steps,
                                          chunk["action"], metrics)

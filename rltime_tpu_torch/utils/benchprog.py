@@ -39,7 +39,7 @@ from rltime_tpu_torch.history.replay import (
 from rltime_tpu_torch.models.policy import ModelConfig
 from rltime_tpu_torch.training.learner import (
     AlgoConfig, TrainState, make_insert_and_update_step, make_train_state,
-    make_update_step,
+    make_update_step, use_device_counter,
 )
 from rltime_tpu_torch.training.r2d2 import make_r2d2_update_step, r2d2_horizon
 from rltime_tpu_torch.utils.graphs import GraphedStep
@@ -136,7 +136,7 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
     # capturable where the graph holds it
     tstate = make_train_state(mcfg, acfg, in_shape, 0, dev,
                               capturable=dev.type == "cuda")
-    tstate.counter = torch.zeros((), dtype=torch.int64, device=dev)
+    use_device_counter(tstate, acfg)
     if algo == "r2d2":
         update = make_r2d2_update_step(mcfg, acfg, rcfg, F, False)
     else:

@@ -12,14 +12,28 @@ is host-bound). `GraphedStep` records a step's launches once into a
     optimizer makes its state, autograd sets up its streams), and the
     call after them captures it and replays the graph;
   * the step reads its inputs from static buffers that every call copies
-    into (device to device, no host sync), and its outputs are the
-    capture's own tensors, overwritten by each replay;
+    into (device to device, no host sync; a numpy array crosses from the
+    host), and its outputs are the capture's own tensors, overwritten by
+    each replay;
   * every `torch.Generator` the step draws from is registered with the
     graph, so each replay draws fresh numbers from the generator's state
     at that replay, and advances it, as the eager step would;
   * state that the step updates in place (parameters, optimizer moments,
     replay rings, device counters) carries over from replay to replay;
-    a step must write what it carries back into the same tensors.
+    a step must write what it carries back into the same tensors;
+  * collectives the step issues (`parallel/mesh.py`) are recorded in
+    `parallel/census.py` once, while it is captured; every later replay
+    adds them again.
+
+While a graph is captured, CUDA forbids calls that could sync with it
+(torch's default, global mode: in any thread of the process). Two kinds
+would come from outside the step: another thread's work on the card
+(the async acting pool), which the caller pauses for the capture
+(`__call__`'s `quiet`), and the destructor of a graph that dies
+meanwhile, which voids the capture. Dead trainers hold their graphs in
+reference cycles, so the capture collects them first and keeps
+Python's collector off until it ends (on the card a capture failed
+that way once earlier graphs had been dropped).
 
 A graph records device addresses, so the step must allocate nothing
 that outlives it, read no host value that changes between calls, and
@@ -33,10 +47,15 @@ captured `cudaGraph_t` kept beside its executable.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import re
 from typing import Callable, Dict, Sequence
 
+import numpy as np
 import torch
+
+from rltime_tpu_torch.parallel import census
 
 
 class GraphedStep:
@@ -69,12 +88,19 @@ class GraphedStep:
         self.graph = None
         self.kept = False   # the capture kept its cudaGraph_t (debug)
         self.output = None
+        self.census: Dict = {}   # the collectives one replay issues
 
-    def __call__(self, *inputs: torch.Tensor):
+    def __call__(self, *inputs: torch.Tensor, quiet=None):
+        """Copy `inputs` into the static buffers and run the step: eagerly
+        for the first WARMUP calls, then captured, then replayed.
+        `quiet`: a context manager that keeps other threads off the card
+        while the capturing call runs."""
         if len(inputs) != len(self.static_inputs):
             raise ValueError(f"expected {len(self.static_inputs)} inputs, "
                              f"got {len(inputs)}")
         for buf, x in zip(self.static_inputs, inputs):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
             if x is not buf:
                 if x.shape != buf.shape or x.dtype != buf.dtype:
                     raise ValueError(
@@ -85,7 +111,14 @@ class GraphedStep:
         if self.graph is None:
             if self.calls <= self.WARMUP:
                 return self._eager()
-            self._capture()
+            before = dict(census.COUNTS)
+            with quiet if quiet is not None else contextlib.nullcontext():
+                self._capture()
+            self.census = {k: n - before.get(k, 0)
+                           for k, n in census.COUNTS.items()
+                           if n > before.get(k, 0)}
+        else:
+            census.add(self.census)
         self.graph.replay()
         self.replays += 1
         return self.output
@@ -105,8 +138,15 @@ class GraphedStep:
             graph.enable_debug_mode()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.device(self.device), torch.cuda.graph(graph):
-            self.output = self.fn(*self.static_inputs)
+        gc.collect()        # no graph may be freed during the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+                self.output = self.fn(*self.static_inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.kept = graph, self.debug
 
     def kernel_counts(self, names: Sequence[str], path: str) -> Dict[str, int]:

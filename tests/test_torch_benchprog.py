@@ -219,15 +219,6 @@ def test_device_cursor_matches_host_int_over_two_laps(sampler, inserted):
     assert host.t > 2 * 32 and int((host.tree > 0).sum()) > 0
 
 
-def test_device_sampler_refuses_uniform_replay():
-    cfg = treplay.ReplayConfig(num_envs=2, steps_per_env=32, horizon=1,
-                               chunk_len=4, prioritized=False)
-    state = treplay.replay_init(cfg, {"done": ((), torch.bool)}, CPU)
-    state.cursor = torch.zeros((), dtype=torch.int64)
-    with pytest.raises(ValueError, match="PER sampler"):
-        treplay.replay_sample_indices_device(cfg, state, 4, 0.4)
-
-
 def _capturable_on_cpu(monkeypatch):
     """torch keeps capturable Adam to accelerators; the tests let it run
     on the CPU, the same arithmetic as on the card."""
@@ -304,18 +295,6 @@ def test_device_counter_and_capturable_adam_match_the_host_route(
         np.testing.assert_allclose(dm["loss"].item(), hm["loss"].item(),
                                    rtol=1e-5)
     assert torch.equal(dev_rs.tree > 0, host_rs.tree > 0)
-
-
-def test_device_counter_refuses_lr_decay():
-    algo = tlearner.AlgoConfig(batch_size=8, n_step=N_STEP, lr_decay_updates=10)
-    cfg, rs, _, rng = _small_replay()
-    ts = tlearner.make_train_state(ModelConfig(**CNN), algo, (F, 84, 84), 0,
-                                   CPU)
-    ts.counter = torch.zeros((), dtype=torch.int64)
-    update = tlearner.make_update_step(algo, cfg, F, flatten=False)
-    with pytest.raises(ValueError, match="lr_decay_updates"):
-        update(ts, rs, 0.4, u=torch.from_numpy(rng.random(8).astype(
-            np.float32)))
 
 
 def test_capturable_adam_matches_optax(monkeypatch):

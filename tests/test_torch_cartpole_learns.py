@@ -71,6 +71,8 @@ def _set_learner(tt, js):
             step=torch.tensor(float(adam.count)), exp_avg=mu[name].clone(),
             exp_avg_sq=nu[name].clone())
     ts.updates = int(js.updates)
+    if ts.counter is not None:
+        ts.counter.fill_(ts.updates)
 
 
 def _max_dev(mc, net, jparams):

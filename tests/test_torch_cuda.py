@@ -348,3 +348,96 @@ def test_captured_fused_superstep_equals_eager_body(cuda_device, case,
                                    str(tmp_path / "graph.dot"))
     assert counts == {"union_gather_kernel": 0,
                       "window_gather_kernel": t.loop_cfg.updates_per_chunk}
+
+
+def _small_host_config(case):
+    """Small host-trainer configs (no jax in this file): config #2's
+    shape on counting-env frames (PER, frame stack 4); the same on
+    uniform replay with a linear lr decay; a recurrent R2D2; a one-rank
+    Ape-X."""
+    cfg = {
+        "seed": 0,
+        "env": {"type": "counting_env", "num_envs": 2, "episode_len": 11,
+                "image_obs": True},
+        "frame_stack": 4,
+        "model": {"torso": "nature_cnn", "cnn_channels": [4, 4, 4],
+                  "cnn_fc": 16, "head": "dueling", "dueling_hidden": 8},
+        "replay": {"steps_per_env": 128, "prioritized": True},
+        "algo": {"algo": "dqn", "batch_size": 4, "n_step": 3, "lr": 1e-3,
+                 "target_update_freq": 3},
+        "exploration": {"type": "epsilon_greedy", "eps_start": 1.0,
+                        "eps_end": 0.1, "anneal_steps": 200},
+        "train": {"total_env_steps": 10**6, "warmup_env_steps": 48,
+                  "chunk_len": 8, "updates_per_chunk": 2,
+                  "log_interval": 10**9, "checkpoint_interval": 10**9},
+    }
+    if case == "uniform":
+        cfg["replay"]["prioritized"] = False
+        cfg["algo"].update(lr_end=1e-4, lr_decay_updates=7)
+    elif case == "r2d2":
+        cfg.update(frame_stack=2, env={"type": "counting_env",
+                                       "num_envs": 2, "episode_len": 7})
+        cfg["model"] = {"torso": "mlp", "mlp_hidden": [12],
+                        "head": "dueling", "dueling_hidden": 8,
+                        "lstm_size": 8}
+        cfg["algo"].update(algo="r2d2", n_step=2, burn_in=4, seq_len=8)
+        cfg["train"]["warmup_env_steps"] = 64
+    elif case == "apex":
+        cfg.update(frame_stack=1, env={"type": "counting_env",
+                                       "num_envs": 4, "episode_len": 7})
+        cfg["model"] = {"torso": "mlp", "mlp_hidden": [16],
+                        "head": "linear"}
+        cfg["exploration"] = {"type": "epsilon_greedy", "mode": "ladder"}
+        cfg["train"].update(trainer="apex", warmup_env_steps=64,
+                            track_best=False)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dqn", "uniform", "r2d2", "apex"])
+def test_captured_host_step_equals_eager_body(cuda_device, case,
+                                              monkeypatch, tmp_path):
+    """The host trainers on the card: the third trained chunk captures
+    {insert + K updates}; three more chunks, each a replay, equal the
+    eager body run from clones of the states taken before them on the
+    same chunks and betas, every tensor and generator state and each
+    chunk's metrics (cuDNN deterministic); a replay runs no Python
+    wrapper, and the graph holds K window_gather nodes and, where the FF
+    update stacks frames, K union_gather nodes."""
+    from rltime_tpu_torch.parallel.apex import ApexTrainer
+    from rltime_tpu_torch.parallel.fused import state_diffs
+    from rltime_tpu_torch.training.trainer import Trainer
+    from rltime_tpu_torch.utils import benchprog
+    from rltime_tpu_torch.utils.graphs import GraphedStep
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(GraphedStep, "debug", True)
+    cls = ApexTrainer if case == "apex" else Trainer
+    t = cls(_small_host_config(case), str(tmp_path / "run"),
+            device=cuda_device)
+    while t.graph is not None and t.graph.graph is None:
+        t.train_chunk()
+    assert t.graph is not None
+    ts, rs = benchprog.clone_states(t.train_state, t.replay_state)
+    for _ in range(3):
+        chunk, _ = t.actor.rollout(getattr(t, "actor_model",
+                                           t.train_state.model))
+        beta = t._beta().to(cuda_device)
+        gather.reset_counts()
+        m = t.learn(chunk)
+        assert gather.LAUNCHES == {"union_gather": 0, "window_gather": 0}
+        eager_m = t.eager_step(ts, rs, chunk, beta)
+        torch.cuda.synchronize()
+        for k, v in m.items():
+            assert torch.equal(v, eager_m[k]), k
+    diffs = state_diffs((t.train_state, None, t.replay_state),
+                        (ts, None, rs))
+    assert not {k: v for k, v in diffs.items() if v}
+    assert t.replay_state.cursor.item() == t.replay_state.t
+    assert t.train_state.counter.item() == t.train_state.updates
+    K = t.loop_cfg.updates_per_chunk
+    stacks = t.algo_cfg.algo != "r2d2" and t.frame_stack > 1
+    counts = t.graph.kernel_counts(("union_gather_kernel",
+                                    "window_gather_kernel"),
+                                   str(tmp_path / "graph.dot"))
+    assert counts == {"union_gather_kernel": K if stacks else 0,
+                      "window_gather_kernel": K}

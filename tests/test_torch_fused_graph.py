@@ -233,12 +233,6 @@ def test_census_counts_each_replay():
     census.reset_counts()
 
 
-def test_fused_trainer_refuses_uniform_replay(tmp_path):
-    with pytest.raises(ValueError, match="PER sampler"):
-        FusedApexTrainer(_cfg(replay={"prioritized": False}),
-                         str(tmp_path / "u"), device="cpu")
-
-
 def test_the_cpu_runs_the_body_without_a_graph(tmp_path):
     t = _trainer(tmp_path, "dqn")
     assert t.graph is None

@@ -76,6 +76,25 @@ Phases (any failure exits non-zero and prints no result line):
      insert + update ms per chunk and per update, and the device-busy
      share of a profiled chunk (config #5 gets the same checks in phase
      12);
+ 17. (run right after phase 16) the actors' graphs, at full width:
+     config #2 (`pong_dqn_counting`), also with actor-side priorities
+     (the late route: Q(s, a) and max_a Q read back in the actions' one
+     copy), config #4 (`atari_r2d2_counting`, the LSTM carry), config #1
+     (`cartpole_dqn` over `cartpole_native`), config #2 as IQN (the
+     acting taus drawn inside), each a host actor whose act step is one
+     CUDA-graph replay a step, and `cartpole_dqn_device` through the host
+     Trainer, whose rollout is one replay a chunk. Op by op
+     (`capture=False`) first: a chunk's steps split into env, H2D,
+     forward and D2H (host actors), then act ms per chunk and env-steps/s
+     over 8 warm chunks and the device-busy share of a profiled chunk.
+     Captured: 8 chunks of replays held against the eager body run from
+     clones of the state and generators taken before them, under
+     cudnn.deterministic (every step's outputs, the carried tensors and
+     generator states; a device chunk's every field and the whole actor
+     state), max abs difference 0; then the same rates. Config #5 gets
+     the same checks in phase 12, and phase 12's `train.async_acting`
+     run checks the pool's act graph (captured on the pool's thread while
+     the learner waits, publishes copied in place into one model);
  15. (run right after phase 7) the graph against the eager body under
      cudnn.deterministic, at the full width of `minatar_breakout_dqn`
      (chunked), `minatar_breakout_iqn` with actor-side priorities,
@@ -1865,6 +1884,201 @@ def phase_host_graphs(smi: str) -> dict:
     return out
 
 
+# phase 17: the actors' graphs (the act step of a host actor, one replay
+# a step; a device actor's rollout, one replay a chunk), at each config's
+# full width
+ACT_GRAPH_CASES = (
+    dict(preset="pong_dqn_counting", tag="config #2 pong_dqn_counting"),
+    dict(preset="pong_dqn_counting",
+         tag="config #2, actor-side priorities (the late route)",
+         overrides=["replay.use_inserted_priorities=true"]),
+    dict(preset="atari_r2d2_counting", tag="config #4 atari_r2d2_counting"),
+    dict(preset="cartpole_dqn", tag="config #1 cartpole_dqn+cartpole_native",
+         overrides=["env.type=cartpole_native"]),
+    dict(preset="pong_dqn_counting", tag="config #2 as IQN",
+         overrides=["model.head=iqn", "algo.algo=iqn"]),
+    dict(preset="cartpole_dqn_device", tag="cartpole_dqn_device (Trainer)"),
+)
+ACT_CHUNKS = 8          # replays held against the eager body; warm chunks
+
+
+def _act_split(actor, model, steps: int) -> dict:
+    """ms per op-by-op act step of a host actor, split as the route
+    spends it, each part ended by a synchronise: env (`env.step`), H2D
+    (obs, done_prev and eps from pageable numpy), forward (the draws and
+    the act step) and D2H (the actions, and Q(s, a) and max_a Q where
+    the actor reads them back). Steps the actor's envs as a rollout
+    would, outside any chunk."""
+    import numpy as np
+    import torch
+    E, dev = actor.env.num_envs, actor.device
+    split = dict(env=0.0, h2d=0.0, forward=0.0, d2h=0.0)
+    for _ in range(steps):
+        eps = actor.exploration.epsilons(E, actor.env_steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = torch.from_numpy(np.ascontiguousarray(actor.obs)).to(dev)
+        done = torch.from_numpy(actor.done_prev).to(dev)
+        eps_d = torch.from_numpy(eps).to(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        actions, actor.state, info = actor._act_step(
+            model, actor.state, obs, done, eps_d, None,
+            *actor._draws(actor.generator))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        actions = actions.cpu().numpy()
+        if actor.compute_priorities:
+            info["q_sa"].cpu(), info["q_best"].cpu()
+        t3 = time.perf_counter()
+        obs_next, _, term, trunc = actor.env.step(actions)
+        t4 = time.perf_counter()
+        actor.obs, actor.done_prev = obs_next, term | trunc
+        actor.env_steps += E
+        for k, a, b in (("h2d", t0, t1), ("forward", t1, t2),
+                        ("d2h", t2, t3), ("env", t3, t4)):
+            split[k] += (b - a) * 1e3 / steps
+    return split
+
+
+def _act_rates(actor, model, chunks: int) -> dict:
+    """Act-phase rates of an actor past its capture (or its first chunks,
+    op by op): `chunks` rollouts by the host clock to a synchronise, then
+    one more under torch.profiler for its device-busy time."""
+    import torch
+    steps = actor.chunk_len * (getattr(actor, "num_envs", None)
+                               or actor.env.num_envs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        actor.rollout(model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, busy, _ = device_profile(lambda: actor.rollout(model))
+    ms = wall / chunks * 1e3
+    return dict(ms=ms, rate=chunks * steps / wall, busy=busy,
+                share=busy / ms)
+
+
+def _act_text(r: dict) -> str:
+    return (f"act {r['ms']:.3f} ms/chunk, {r['rate']:.1f} env-steps/s, "
+            f"device busy {r['busy']:.3f} ms of a profiled chunk "
+            f"({r['share']:.1%} of the unprofiled chunk)")
+
+
+def act_graph_case(case: dict, make, smi: str) -> dict:
+    """One actor at full width, built by `make(capture)` (a host trainer;
+    its actor acts with the trainer's model). Op by op (`capture=False`)
+    first: the per-step split (`_act_split`, host actors) over a chunk's
+    steps, then the warm act rates. Captured: acted to its capture, then
+    ACT_CHUNKS chunks of replays held against the eager body from clones
+    taken before them, under cudnn.deterministic: a host actor's every
+    step (`ActGraphShadow`: the actions, Q(s, a) and max_a Q where read
+    back, q_mean, the stored carry) and its carried tensors and
+    generator; a device actor's every chunk field (the eager rollout
+    on a clone of its state and the same eps buffer) and its whole state
+    (env state, carry, returns and lengths, stat rings but their spill
+    slot, the three generators); max abs difference 0. Then the warm act rates of the
+    captured actor. Returns the rates."""
+    import torch
+    from rltime_tpu_torch.acting.actor import ActGraphShadow
+    from rltime_tpu_torch.acting.device_actor import DeviceActor
+    tag = case["tag"]
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    out = {}
+    for capture in (False, True):
+        t = make(capture)
+        actor = t.actor
+        model = getattr(t, "actor_model", t.train_state.model)
+        device = isinstance(actor, DeviceActor)
+        check((actor.graph is not None) == capture,
+              f"{tag}: capture={capture} gave graph {actor.graph}")
+        if not capture:
+            for _ in range(2):
+                actor.rollout(model)
+            if not device:
+                out["split"] = _act_split(actor, model, actor.chunk_len)
+            out["eager"] = _act_rates(actor, model, ACT_CHUNKS)
+        else:
+            while actor.graph.graph is None:
+                actor.rollout(model)
+            deterministic = cudnn.deterministic
+            cudnn.deterministic = True
+            try:
+                if device:
+                    shadow = actor.state.clone()
+                    worst = 0.0
+                    for _ in range(ACT_CHUNKS):
+                        chunk, _ = actor.rollout(model)
+                        want = actor.eager_rollout(shadow, actor._eps)
+                        worst = max([worst] + [
+                            (v.double() - want[k].double()).abs().max().item()
+                            for k, v in chunk.items()])
+                    torch.cuda.synchronize()
+                    diffs = actor.state.diffs(shadow)
+                    what = "chunk fields"
+                else:
+                    shadow = ActGraphShadow(actor)
+                    for _ in range(ACT_CHUNKS):
+                        actor.rollout(model)
+                    shadow.detach()
+                    check(shadow.steps >= ACT_CHUNKS * actor.chunk_len,
+                          f"{tag}: {shadow.steps} steps shadowed")
+                    worst, diffs = shadow.max_diff, shadow.state_diffs()
+                    what = f"{shadow.steps} steps' outputs"
+            finally:
+                cudnn.deterministic = deterministic
+            worst = max([worst] + list(diffs.values()))
+            check(worst == 0.0, f"{tag}: act graph vs eager body over "
+                  f"{ACT_CHUNKS} chunks, max abs difference {worst} "
+                  f"({ {k: v for k, v in diffs.items() if v} })")
+            out["parity"] = (what, len(diffs), actor.graph.replays)
+            out["captured"] = _act_rates(actor, model, ACT_CHUNKS)
+        if getattr(t, "logger", None) is not None:
+            t.logger.close()
+        del t, actor, model
+        torch.cuda.empty_cache()
+    what, n, replays = out["parity"]
+    split = out.get("split")
+    split_text = "" if split is None else (
+        "; op-by-op step split: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items())
+        + f" ms (sum {sum(split.values()):.3f} ms a step)")
+    print(f"{tag}: {ACT_CHUNKS} chunks of act-graph replays == the eager "
+          f"body from clones over {what} and {n} state tensors and "
+          f"generator states: max abs difference 0.0 (cudnn.deterministic; "
+          f"{replays} replays); captured: {_act_text(out['captured'])}; op "
+          f"by op: {_act_text(out['eager'])}{split_text}; "
+          f"{time.perf_counter() - t0:.1f} s  [{smi}]", flush=True)
+    return out
+
+
+def phase_act_graphs(smi: str) -> dict:
+    """Phase 17: `act_graph_case` for every entry of ACT_GRAPH_CASES
+    (config #5, on a one-rank NCCL group, runs in phase 12). Returns
+    {tag: the case's rates}."""
+    import torch
+    from rltime_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    out = {}
+    for case in ACT_GRAPH_CASES:
+        cfg = host_config(case)
+
+        def make(capture, cfg=cfg, case=case):
+            d = ROOT / "results" / ("chip_smoke_act_graph_" + "".join(
+                c if c.isalnum() else "_" for c in case["tag"])
+                + ("" if capture else "_eager"))
+            shutil.rmtree(d, ignore_errors=True)
+            return Trainer(copy.deepcopy(cfg), str(d), device="cuda",
+                           capture=capture)
+
+        out[case["tag"]] = act_graph_case(case, make, smi)
+    torch.cuda.empty_cache()
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def _chunks(rng, E, L, obs_shape, num_actions, lstm_size=0, n=6):
     import numpy as np
     out = []
@@ -2543,6 +2757,8 @@ def phase_distribution(smi: str):
 
         census.reset_counts()
         apex_nodes = host_graph_case(apex_case, make, smi)
+        # and its actor's act graph (phase 17's checks)
+        act_graph_case(apex_case, make, smi)
 
         # 3) the fused trainer through the NCCL mesh, captured with its
         # all-reduces: a replayed superstep with no host sync, counted by
@@ -2613,12 +2829,21 @@ def phase_distribution(smi: str):
         rates[tag] = _warm_chunks(tr, 8)
         check(math.isfinite(tr.last_metrics["loss"].item()),
               f"{tag}: loss {tr.last_metrics['loss'].item()}")
+        check(tr.actor.graph is not None and tr.actor.graph.graph
+              is not None, f"{tag}: the act step was not captured")
         if tr.pool is not None:
             pool = tr.pool
             pool.close()
             check(not pool.alive and pool.version >= 8,
                   f"async pool alive after close, or {pool.version} "
                   "publishes")
+            # captured on the pool's thread while the constructor held
+            # the learner back, then acting with one model that each
+            # publish is copied into
+            check(tr.actor._model is pool.model
+                  and pool._model_version >= 8, f"async pool: the act "
+                  f"graph's model is not the pool's, or only publish "
+                  f"{pool._model_version} of {pool.version} was taken")
         tr.logger.close()
         del tr
         torch.cuda.empty_cache()
@@ -2627,7 +2852,10 @@ def phase_distribution(smi: str):
                       f"{u:.2f} ms/update)" for tag, (r, a, u)
                       in rates.items())
           + f"; async queue depth {pool.mean_depth:.2f} of 2 on average "
-          f"over {pool.gets} chunks, {pool.version} publishes  [{smi}]",
+          f"over {pool.gets} chunks, {pool.version} publishes, the act "
+          f"step a graph replay on both, the pool's captured on its "
+          f"thread before the learner ran, publish {pool._model_version} "
+          f"copied in place into its model  [{smi}]",
           flush=True)
 
     # 5) the multi-rank CLI on one rank, in a process of its own
@@ -2869,6 +3097,7 @@ def main() -> int:
     phase_fused_graph_parity(smi)
     host_nodes = phase_host_graphs(smi)
     torch.cuda.empty_cache()
+    phase_act_graphs(smi)
     bench_launches = phase_bench_superstep(smi)
     phase_small_parity()
     phase_fused_parity()

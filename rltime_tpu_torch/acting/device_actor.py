@@ -43,6 +43,7 @@ import torch
 from rltime_tpu_torch.models.policy import (
     ModelConfig, QPolicy, RnnState, initial_rnn_state, q_values,
 )
+from rltime_tpu_torch.utils.graphs import GraphedStep
 from rltime_tpu_torch.utils.prng import make_generator
 
 STATS_RING = 256  # last-K completed episode returns kept on the device
@@ -101,6 +102,26 @@ class DeviceActorState:
     def generators(self):
         """Every generator the rollout draws from."""
         return [getattr(self, name) for name in _GENERATORS]
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor and generator state by name, the stat rings' spill
+        slot left out (every lane that did not finish writes it, in no
+        set order on a card): what a replay is held against."""
+        out = {}
+        for k, v in self.state_dict().items():
+            if isinstance(v, dict):
+                out.update({f"{k}.{n}": x for n, x in v.items()})
+            elif isinstance(v, list):
+                out.update({f"{k}[{i}]": x for i, x in enumerate(v)})
+            elif v is not None:
+                out[k] = v[:STATS_RING] if k.endswith("_ring") else v
+        return out
+
+    def diffs(self, other: "DeviceActorState") -> Dict[str, float]:
+        """Max abs difference of each of `tensors()` from `other`'s."""
+        theirs = other.tensors()
+        return {k: (x.double().cpu() - theirs[k].double().cpu()).abs().max()
+                .item() for k, x in self.tensors().items()}
 
 
 _TENSORS = ("done_prev", "ep_ret", "ep_len", "ret_ring", "len_ring",
@@ -310,12 +331,22 @@ def pop_episode_stats(state: DeviceActorState, popped: int):
 
 class DeviceActor:
     """Actor-interface adapter over the device rollout (what the host
-    `Trainer` drives when the env handle has `is_device`)."""
+    `Trainer` drives when the env handle has `is_device`).
+
+    On a card (`capture=True`, the default) a chunk's rollout is one
+    replay of a CUDA graph (`self.graph`), the counterpart of the JAX
+    package's jitted rollout: eps (L, E) goes down into a static buffer
+    from pinned memory, the state's three generators are registered with
+    the graph, and the chunk's tensors are the graph's outputs,
+    overwritten by the next rollout (a caller that keeps a chunk past it
+    clones it; `replays_chunk`). The graph acts with the model of the
+    first rollout for the actor's life. `capture=False`, the CPU and
+    injected `draws` run the rollout op by op."""
 
     def __init__(self, env, num_envs: int, cfg: ModelConfig, exploration,
                  seed: int, chunk_len: int, device: torch.device,
                  reset_draws=None, compute_priorities: bool = False,
-                 gamma: float = 0.99):
+                 gamma: float = 0.99, capture: bool = True):
         self.env = env
         self.cfg = cfg
         self.num_envs = num_envs
@@ -328,11 +359,51 @@ class DeviceActor:
                                           compute_priorities, gamma)
         self.env_steps = 0
         self._stats_popped = 0
+        self.graph = None
+        self._model = None
+        if capture and device.type == "cuda":
+            self._eps = torch.empty((chunk_len, num_envs),
+                                    dtype=torch.float32, device=device)
+            self.graph = GraphedStep(self._body, [self._eps],
+                                     self.state.generators())
+
+    @property
+    def replays_chunk(self) -> bool:
+        """The chunk's tensors are a graph's outputs: the next rollout
+        overwrites them."""
+        return self.graph is not None
+
+    def eager_rollout(self, state: DeviceActorState, eps: torch.Tensor):
+        """One chunk of the captured route op by op on any state of this
+        actor's shapes, in place (what the graph captures, and what a
+        replay is held against). Returns the chunk."""
+        return self._rollout(self._model, state, eps)[1]
+
+    def _body(self, eps: torch.Tensor):
+        """One chunk on the actor's own state: what the graph captures."""
+        return self.eager_rollout(self.state, eps)
 
     def rollout(self, model: QPolicy, draws=None):
-        eps = eps_schedule(self.exploration, self.num_envs, self.env_steps,
-                           self.chunk_len, self.device)
-        self.state, chunk = self._rollout(model, self.state, eps, draws)
+        if self.graph is None:
+            eps = eps_schedule(self.exploration, self.num_envs,
+                               self.env_steps, self.chunk_len, self.device)
+            self.state, chunk = self._rollout(model, self.state, eps, draws)
+        else:
+            if draws:
+                raise ValueError("injected draws need the eager rollout: "
+                                 "build the actor with capture=False")
+            if model is not self._model:
+                if self.graph.calls:
+                    raise RuntimeError(
+                        "the captured rollout acts with the model of its "
+                        "first chunk; update that model in place instead")
+                self._model = model
+            eps = eps_schedule(self.exploration, self.num_envs,
+                               self.env_steps, self.chunk_len,
+                               torch.device("cpu"))
+            self._eps.copy_(eps.pin_memory() if self._eps.is_cuda else eps,
+                            non_blocking=True)
+            chunk = self.graph(self._eps)
         self.env_steps += self.chunk_len * self.num_envs
         return chunk, dict(env_steps=self.env_steps)
 

@@ -39,9 +39,11 @@ class _FixedEps:
 def evaluate(result_dir: str, episodes: int = 10, eps: float = 1e-3,
              seed: int = 1234, max_steps: int = 200_000,
              record_path: str = "", best: bool = False,
-             device="cuda"):
+             device="cuda", capture: bool = True):
     """Run the checkpoint's policy at a fixed `eps` until `episodes`
-    episodes have completed; returns the report dict the CLI prints."""
+    episodes have completed; returns the report dict the CLI prints.
+    On a card the act step (or a device env's rollout) is a CUDA-graph
+    replay; `capture=False` acts op by op."""
     device = resolve_device(device)
     with open(os.path.join(result_dir, "config.json")) as f:
         cfg = json.load(f)
@@ -54,10 +56,12 @@ def evaluate(result_dir: str, episodes: int = 10, eps: float = 1e-3,
 
     if getattr(env, "is_device", False):
         actor = DeviceActor(env.inner, env.num_envs, model_cfg,
-                            _FixedEps(eps), seed, 64, device)
+                            _FixedEps(eps), seed, 64, device,
+                            capture=capture)
     else:
         actor = Actor(env, model_cfg, frame_stack, _FixedEps(eps),
-                      make_generator(seed, "actor", device), 64, device)
+                      make_generator(seed, "actor", device), 64, device,
+                      capture=capture)
 
     step = None
     if best:
@@ -83,7 +87,8 @@ def evaluate(result_dir: str, episodes: int = 10, eps: float = 1e-3,
         r, _l = actor.episode_stats()
         all_rets.extend(r)
         if frames is not None and len(env.spec.obs_shape) >= 2:
-            # record lane 0's raw obs stream
+            # record lane 0's raw obs stream (read before the next
+            # rollout, which overwrites a captured rollout's chunk)
             frames.append(torch.as_tensor(chunk["obs"][0]).cpu().numpy())
         steps += 64 * env.num_envs
     if frames is not None and frames:

@@ -96,12 +96,15 @@ def flax_to_state_dict(cfg: ModelConfig,
 
 def state_dict_to_flax(cfg: ModelConfig,
                        sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Port `state_dict` -> flax variables (numpy leaves)."""
+    """Port `state_dict` -> flax variables: numpy leaves that share no
+    memory with `sd` (a view of a (1, N) weight's transpose would alias
+    the live parameter, and a JAX computation dispatched on it
+    asynchronously would read what the next optimizer step writes)."""
     params: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
     for (mod, layer), prefix, kind in _entries(cfg):
         w = sd[f"{prefix}.weight"].detach().cpu().numpy()
         params.setdefault(mod, {})[layer] = {
-            "kernel": np.ascontiguousarray(_kernel_to_flax(w, kind)),
+            "kernel": np.array(_kernel_to_flax(w, kind), order="C"),
             "bias": sd[f"{prefix}.bias"].detach().cpu().numpy().copy(),
         }
     if cfg.recurrent:
@@ -111,8 +114,8 @@ def state_dict_to_flax(cfg: ModelConfig,
         lstm: Dict[str, Dict[str, np.ndarray]] = {}
         for k, g in enumerate(_GATES):
             rows = slice(k * H, (k + 1) * H)
-            lstm["i" + g] = {"kernel": np.ascontiguousarray(w_ih[rows].T)}
-            lstm["h" + g] = {"kernel": np.ascontiguousarray(w_hh[rows].T),
+            lstm["i" + g] = {"kernel": np.array(w_ih[rows].T, order="C")}
+            lstm["h" + g] = {"kernel": np.array(w_hh[rows].T, order="C"),
                              "bias": b_hh[rows].copy()}
         params["lstm"] = lstm
     return {"params": params}

@@ -147,7 +147,7 @@ class ApexTrainer(ChunkStep):
             make_generator(fold_in_str(seed, "actor"), f"proc {rank}",
                            self.device),
             self.loop_cfg.chunk_len, self.device, compute_priorities=prio,
-            gamma=self.algo_cfg.gamma)
+            gamma=self.algo_cfg.gamma, capture=graphed)
         self.flatten = len(spec.obs_shape) == 1
 
         # identical weights on every rank (made on the CPU from the seed)

@@ -227,16 +227,8 @@ def state_diffs(a, b) -> Dict[str, float]:
         out.update(tree=rs.tree, max_priority=rs.max_priority,
                    cursor=rs.cursor, counter=ts.counter,
                    generator=ts.generator.get_state())
-        if ast is None:
-            return out
-        for k, v in ast.state_dict().items():
-            if isinstance(v, dict):
-                out.update({f"actor.{k}.{n}": x for n, x in v.items()})
-            elif isinstance(v, list):
-                out.update({f"actor.{k}.{i}": x for i, x in enumerate(v)})
-            elif v is not None:
-                out[f"actor.{k}"] = (v[:STATS_RING] if k.endswith("_ring")
-                                     else v)
+        if ast is not None:
+            out.update({f"actor.{k}": v for k, v in ast.tensors().items()})
         return out
 
     pa, pb = pairs(*a), pairs(*b)

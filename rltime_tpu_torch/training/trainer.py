@@ -21,6 +21,9 @@ that keeps them (`episode_score_*`, Atari envs).
 Built from the same JSON config dict as the JAX trainer, plus an
 explicit `device` ("cuda" raises when no card is present).
 
+The actors capture too (`Actor` and `DeviceActor`, `capture=`): on the
+card an act step (host envs) or a whole chunk's rollout (device envs) is
+a CUDA-graph replay, as the JAX package jits its act step and rollout.
 Where the JAX trainer jits {chunk insert + K updates} into one program
 per chunk, the port captures that step into a CUDA graph on the card
 (`utils/graphs.py:GraphedStep`): the first two trained chunks run it op
@@ -35,8 +38,9 @@ Adam is `capturable` and the learner's generator is registered with the
 graph. The host mirrors (`replay_state.t`, `train_state.updates`,
 `updates_done`) are bumped after each chunk. The CPU runs the same body
 op by op, as does `capture=False` on the card (a constructor argument,
-not a config key: the eager rate, injected draws) and the transcript
-route (`debug_outputs`); nothing falls back to it otherwise.
+not a config key: the eager rate, injected draws; the actor then acts op
+by op too) and the transcript route (`debug_outputs`, its actor too);
+nothing falls back to it otherwise.
 """
 from __future__ import annotations
 
@@ -288,6 +292,8 @@ class Trainer(ChunkStep):
         self.replay_state.cursor = torch.zeros((), dtype=torch.int64,
                                                device=self.device)
 
+        graphed = (capture and self.device.type == "cuda"
+                   and not self.algo_cfg.debug_outputs)
         exploration = build(config.get(
             "exploration", {"type": "epsilon_greedy"}))
         if getattr(self.env, "is_device", False):
@@ -298,17 +304,17 @@ class Trainer(ChunkStep):
                 self.env.inner, self.env.num_envs, self.model_cfg,
                 exploration, fold_in_str(seed, "actor"),
                 self.loop_cfg.chunk_len, self.device,
-                compute_priorities=prio, gamma=self.algo_cfg.gamma)
+                compute_priorities=prio, gamma=self.algo_cfg.gamma,
+                capture=graphed)
         else:
             self.actor = Actor(
                 self.env, self.model_cfg, self.frame_stack, exploration,
                 make_generator(seed, "actor", self.device),
                 self.loop_cfg.chunk_len, self.device,
-                compute_priorities=prio, gamma=self.algo_cfg.gamma)
+                compute_priorities=prio, gamma=self.algo_cfg.gamma,
+                capture=graphed)
         self.flatten = len(spec.obs_shape) == 1
 
-        graphed = (capture and self.device.type == "cuda"
-                   and not self.algo_cfg.debug_outputs)
         self.train_state = make_train_state(
             self.model_cfg, self.algo_cfg,
             model_in_shape(spec, self.frame_stack, self.model_cfg),

@@ -35,6 +35,23 @@ reference cycles, so the capture collects them first and keeps
 Python's collector off until it ends (on the card a capture failed
 that way once earlier graphs had been dropped).
 
+The actors' graphs (an act step, `acting/actor.py`; a device rollout,
+`acting/device_actor.py`) are captured in global mode too. Under
+`train.async_acting` they are captured and replayed on the pool's
+thread while the learner is held off the card: the pool's constructor
+waits until the thread's first chunks have captured the actor's graph
+(`acting/pool.py`). Global mode thus keeps its check that nothing else
+touches the card during a capture (`thread_local` mode would drop it),
+and the learner needs no lock around all of its card work (logging and
+checkpoints included). The thread matters: torch keeps cuBLAS's
+workspace per thread (and stream), and a captured matmul keeps the
+workspace's address. Two graphs captured on one thread share it, which
+is safe while they replay one after the other on one stream (the
+synchronous trainer) but not when two threads replay them at once: on
+the card an act graph captured on the learner's thread and replayed by
+the pool beside the learner's graph hung the card, or faulted on an
+illegal address.
+
 A graph records device addresses, so the step must allocate nothing
 that outlives it, read no host value that changes between calls, and
 never sync (`torch.cuda.set_sync_debug_mode("error")` shows one). There

@@ -67,7 +67,10 @@ def _np_tree(t):
 def pair():
     """Both bench programs at T=64, the port's nets loaded with the JAX
     params, one superstep of each on the same chunks and JAX's draws.
-    Everything the tests compare is kept here, taken in build order."""
+    Everything the tests compare is kept here, taken in build order.
+    Built on one PyTorch thread; the thread count is restored after the
+    module (a later file on this worker keeps its own)."""
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jbenchprog, "T", 64)
@@ -104,7 +107,8 @@ def pair():
     out.jm = _np_tree(jm)
     out.tts, out.trs, out.tm = tp.eager_superstep(
         tp.tstate, tp.rstate, 0.4, out.tchunks, draws=draws)
-    return out
+    yield out
+    torch.set_num_threads(threads)
 
 
 def test_chunks_are_bit_equal(pair):

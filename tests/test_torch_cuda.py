@@ -441,3 +441,47 @@ def test_captured_host_step_equals_eager_body(cuda_device, case,
                                    str(tmp_path / "graph.dot"))
     assert counts == {"union_gather_kernel": K if stacks else 0,
                       "window_gather_kernel": K}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dqn", "priorities", "r2d2", "device"])
+def test_captured_act_step_equals_eager_body(cuda_device, case,
+                                             monkeypatch, tmp_path):
+    """The actors' graphs on the card: a host actor's act step (config
+    #2's shape; with actor-side priorities, the late route; R2D2's LSTM
+    carry) and `cartpole_dqn_device`'s rollout under the host Trainer.
+    Three chunks of replays equal the eager body run beside them from
+    clones of the state and generators taken before them (cuDNN
+    deterministic): every step's outputs, the carried tensors and the
+    generator states; a device chunk's fields too."""
+    from rltime_tpu_torch.acting.actor import ActGraphShadow
+    from rltime_tpu_torch.config.config import apply_overrides, load_config
+    from rltime_tpu_torch.training.trainer import Trainer
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    if case == "device":
+        cfg = apply_overrides(load_config("cartpole_dqn_device"), [
+            "env.num_envs=64", "train.chunk_len=16"])
+    else:
+        cfg = _small_host_config("r2d2" if case == "r2d2" else "dqn")
+        cfg["replay"]["use_inserted_priorities"] = case == "priorities"
+    t = Trainer(cfg, str(tmp_path / "run"), device=cuda_device)
+    actor, model = t.actor, t.train_state.model
+    while actor.graph.graph is None:
+        actor.rollout(model)
+    if case == "device":
+        shadow = actor.state.clone()
+        for _ in range(3):
+            chunk, _ = actor.rollout(model)
+            want = actor.eager_rollout(shadow, actor._eps)
+            for k, v in want.items():
+                assert torch.equal(chunk[k], v), k
+        assert not {k: v for k, v in actor.state.diffs(shadow).items()
+                    if v}
+        return
+    shadow = ActGraphShadow(actor)
+    for _ in range(3):
+        chunk, _ = actor.rollout(model)
+    shadow.detach()
+    assert shadow.steps == 3 * t.loop_cfg.chunk_len
+    assert shadow.max_diff == 0.0
+    assert not {k: v for k, v in shadow.state_diffs().items() if v}

@@ -179,3 +179,15 @@ def test_r2d2_config_checks():
     assert tr2d2.r2d2_horizon(acfg) == jr2d2.r2d2_horizon(
         dataclasses.replace(jlearner.AlgoConfig(), burn_in=BURN,
                             seq_len=SEQ, n_step=N)) == BURN + SEQ + N
+
+
+def test_state_dict_to_flax_shares_no_memory():
+    """Every flax leaf is a copy: the (1, 8) value-stream weight's
+    transpose is contiguous already, and a view of it let the JAX
+    update (dispatched asynchronously) read the port's Adam step."""
+    cfg = tpolicy.ModelConfig(**CNN)
+    net = tpolicy.QPolicy(cfg, (4, 84, 84), torch.Generator().manual_seed(0))
+    flat = jax.tree.leaves(bridge.state_dict_to_flax(cfg, net.state_dict()))
+    for p in net.state_dict().values():
+        base = p.numpy()
+        assert not any(np.shares_memory(base, leaf) for leaf in flat)

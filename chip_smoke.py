@@ -172,6 +172,24 @@ Phases (any failure exits non-zero and prints no result line):
      share of a profiled replay; then the IQN (batch 1024, S=8) and R2D2
      (batch 64, S=4) legs: two eager dispatches, the capture, one replay,
      their kernel nodes counted;
+ 18. (run right after phase 14) the pipelined bench superstep
+     (`benchprog.build(pipelined=True)`: each update trains on the batch
+     sampled during the previous one, priorities one update stale) at
+     the bench's full shapes, DQN and the IQN leg (S=8): under
+     cudnn.deterministic the capture, S x K + 1 union_gather and
+     window_gather kernel nodes counted in the graph (the prime's and
+     one per update), all but the prime's on a branch beside other work
+     (the side stream the next batch's sample and gathers are forked
+     onto; a graph without it fails the run), 8 replays (IQN 2) each
+     held against the eager body from clones (every update's sampled
+     leaves, tree, cursor, counter, rings, metrics, params; max abs
+     difference 0), a replay under set_sync_debug_mode("error"); then,
+     with default cuDNN, the plain and the pipelined captured superstep
+     in one process, 5 windows of 4 dispatches each in turns
+     (transitions/s), and a profiled replay of each: the busy share, the
+     time two or more kernels ran at once, and the ms of K2, K1 and the
+     other side kernels (the sampler, the buffer copies) that lay inside
+     the convs' and GEMMs' spans;
  13. (run right after phase 4) the host Atari engine: the C++ lane
      pool's backend (synthetic where the library was built without ALE
      headers) and its own rate on 64 lanes, then configs #2, #4 and #5
@@ -331,6 +349,36 @@ def device_profile(fn, runs: int = 1):
             busy_us += b - max(a, end)
             end = b
     return wall, busy_us / 1e3 / runs, per_name
+
+
+def kernel_spans(fn):
+    """Run fn() once under torch.profiler: (wall s, [(name, start us, end
+    us)] of the CUDA activity, user annotations left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+
+
+def _merge(spans) -> list:
+    """Intervals (a, b) merged where they touch or overlap, in order."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
 def device_ms_per_call(fn, runs: int) -> float:
@@ -1584,6 +1632,309 @@ def phase_bench_superstep(smi: str) -> dict:
         del p, m, chunks
         torch.cuda.empty_cache()
     print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
+
+
+# phase 18: the pipelined bench superstep (one-update-stale PER sampling;
+# the next batch's sample and both gathers forked onto a side stream inside
+# the graph) at the bench's shapes, and its IQN leg at phase 14's S
+PIPELINED_IQN = dict(algo="iqn", supersteps=8)
+PIPELINED_REPLAYS = 8       # replays held against the eager body
+# the compute plane's kernels, by name: cuDNN's convolutions and their
+# transforms, cuBLAS's and CUTLASS's GEMMs
+COMPUTE_MARKS = ("conv", "gemm", "xmma", "cutlass", "cudnn", "fprop",
+                 "dgrad", "wgrad")
+
+
+def _recording_build(leaves, **kw):
+    """`benchprog.build(device="cuda", **kw)` whose update keeps a copy of
+    each update's sampled leaves in `leaves` (in the capture, tensors of
+    the graph that every replay rewrites)."""
+    from rltime_tpu_torch.utils import benchprog
+    make = benchprog.make_update_step
+
+    def maker(*args, **kwargs):
+        update = make(*args, **kwargs)
+        apply = update.apply_phase
+
+        def recording(*a, **k):
+            state, rstate, m = apply(*a, **k)
+            leaves.append(m["debug_leaf"].clone())
+            return state, rstate, m
+        update.apply_phase = recording
+        return update
+    benchprog.make_update_step = maker
+    try:
+        return benchprog.build(device="cuda", debug_outputs=True, **kw)
+    finally:
+        benchprog.make_update_step = make
+
+
+def _pipelined_capture(p, leaves, beta, chunks, tag: str) -> dict:
+    """Two eager warm-ups and the capture of a pipelined program (debug
+    on), then its graph read back: S x K + 1 nodes of each gather, all
+    but the prime's on a branch beside other work (the side stream), no
+    plain call. Returns the nodes of each gather (one replay's
+    launches)."""
+    import torch
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.utils.graphs import concurrent_nodes
+    p.graph.debug = True
+    gather.reset_counts()
+    for _ in range(p.graph.WARMUP + 1):
+        p.superstep(p.tstate, p.rstate, beta, chunks)
+    torch.cuda.synchronize()
+    check(p.graph.graph is not None, f"{tag}: not captured")
+    n = p.S * p.K
+    passes = p.graph.WARMUP + 1
+    check(gather.LAUNCHES == {"union_gather": passes * (n + 1),
+                              "window_gather": passes * (n + 1)},
+          f"{tag}: wrapper launches {gather.LAUNCHES}")
+    check(not any(gather.PLAIN_CALLS.values()),
+          f"{tag}: plain calls {gather.PLAIN_CALLS}")
+    check(len(leaves) == passes * n, f"{tag}: {len(leaves)} updates seen")
+    dot = ROOT / "results" / f"chip_smoke_graph_{tag}.dot"
+    dot.parent.mkdir(parents=True, exist_ok=True)
+    nodes = p.graph.kernel_counts(BENCH_KERNELS, str(dot))
+    side = concurrent_nodes(dot.read_text(), BENCH_KERNELS)
+    check(nodes == {k: n + 1 for k in BENCH_KERNELS},
+          f"{tag}: kernel nodes {nodes}, expected {n + 1} each")
+    check(side == {k: n for k in BENCH_KERNELS},
+          f"{tag}: gather nodes beside other work {side}, expected {n} "
+          "each (the side stream's forks)")
+    print(f"{tag}: graph kernel nodes {nodes} (S x K + 1 = {n + 1}: the "
+          f"prime's and one per update); on a parallel branch {side}",
+          flush=True)
+    return {"union_gather": nodes["union_gather_kernel"],
+            "window_gather": nodes["window_gather_kernel"]}
+
+
+def _pipelined_parity(p, leaves, beta, chunks, replays: int, tag: str):
+    """`replays` replays, each held against the eager body run from clones
+    of the states taken before it: every update's sampled leaves, tree,
+    cursor, counter, max_priority, rings bit-equal; the max abs
+    difference of the metrics and parameters printed (and held to 0)."""
+    import torch
+    from rltime_tpu_torch.ops import gather
+    from rltime_tpu_torch.utils import benchprog
+    n = p.S * p.K
+    graph_leaves = leaves[-n:]
+    worst = 0.0
+    for r in range(replays):
+        ts, rs = benchprog.clone_states(p.tstate, p.rstate)
+        gather.reset_counts()
+        _, _, mg = p.superstep(p.tstate, p.rstate, beta, chunks)
+        mg = {k: v.clone() for k, v in mg.items()}
+        check(not any(gather.LAUNCHES.values()),
+              f"{tag}: a replay ran a wrapper: {gather.LAUNCHES}")
+        mark = len(leaves)
+        _, _, me = p.eager_superstep(ts, rs, beta, chunks)
+        torch.cuda.synchronize()
+        eager_leaves = leaves[mark:]
+        check(len(eager_leaves) == n, f"{tag}: eager ran "
+              f"{len(eager_leaves)} updates")
+        for i, (a, b) in enumerate(zip(graph_leaves, eager_leaves)):
+            check(torch.equal(a, b), f"{tag} replay {r}: update {i}'s "
+                  "sampled leaves differ from the eager body's")
+        del leaves[mark:]
+        for name, a, b in (
+                [("tree", p.rstate.tree, rs.tree),
+                 ("cursor", p.rstate.cursor, rs.cursor),
+                 ("counter", p.tstate.counter, ts.counter),
+                 ("max_priority", p.rstate.max_priority, rs.max_priority)]
+                + [(f"ring {k}", x, rs.storage[k])
+                   for k, x in p.rstate.storage.items()]):
+            check(torch.equal(a, b), f"{tag} replay {r}: {name} differs")
+        diffs = {k: (mg[k].float() - me[k].float()).abs().max().item()
+                 for k in mg}
+        for net, other in ((p.tstate.model, ts.model),
+                           (p.tstate.target, ts.target)):
+            for (k, a), b in zip(net.state_dict().items(),
+                                 other.state_dict().values()):
+                diffs[k] = max(diffs.get(k, 0.0),
+                               (a.float() - b.float()).abs().max().item())
+        worst = max(worst, max(diffs.values()))
+        # tolerance 0: under cudnn.deterministic the graph replays the
+        # eager body's kernels on the same inputs
+        check(worst == 0.0, f"{tag} replay {r}: max abs difference "
+              f"{worst} ({ {k: v for k, v in diffs.items() if v} })")
+        del ts, rs, mg, me
+    return worst
+
+
+def _inside(a, b, merged, starts) -> float:
+    """us of [a, b) inside the merged intervals (`starts` their starts)."""
+    import bisect
+    i = max(bisect.bisect_right(starts, a) - 1, 0)
+    total = 0.0
+    while i < len(merged) and merged[i][0] < b:
+        total += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+        i += 1
+    return total
+
+
+def overlap_split(spans) -> dict:
+    """A profiled replay's activity: busy ms (the union), concurrent ms
+    (summed durations less busy: time two or more ran at once), and the
+    ms of K2, K1 and every other kernel outside the compute plane
+    (COMPUTE_MARKS) that lay inside the compute plane's spans: on one
+    stream nothing overlaps a conv or a GEMM, so this is the side
+    stream's work hidden under them (the sampler, the buffer copies and
+    the gathers)."""
+    busy = sum(b - a for a, b in _merge((a, b) for _, a, b in spans))
+    compute = _merge((a, b) for name, a, b in spans
+                     if any(m in name.lower() for m in COMPUTE_MARKS))
+    starts = [m[0] for m in compute]
+    out = {"busy_ms": busy / 1e3,
+           "concurrent_ms": (sum(b - a for _, a, b in spans) - busy) / 1e3,
+           "k2_ms": 0.0, "k2_hidden_ms": 0.0, "k1_ms": 0.0,
+           "k1_hidden_ms": 0.0, "other_hidden_ms": 0.0}
+    for name, a, b in spans:
+        if any(m in name.lower() for m in COMPUTE_MARKS):
+            continue
+        hidden = _inside(a, b, compute, starts) / 1e3
+        if "union_gather_kernel" in name:
+            out["k2_ms"] += (b - a) / 1e3
+            out["k2_hidden_ms"] += hidden
+        elif "window_gather_kernel" in name:
+            out["k1_ms"] += (b - a) / 1e3
+            out["k1_hidden_ms"] += hidden
+        else:
+            out["other_hidden_ms"] += hidden
+    out["k2_beside"] = _beside(spans, "union_gather_kernel")
+    return out
+
+
+def _beside(spans, name: str, top: int = 3) -> list:
+    """The kernels that ran at the same time as `name`'s, by the ms of
+    overlap: [(kernel name, ms)], the `top` longest."""
+    order = sorted(spans, key=lambda x: x[1])
+    starts = [a for _, a, _ in order]
+    longest = max((b - a for _, a, b in spans), default=0.0)
+    import bisect
+    with_ms: dict = {}
+    for n, a, b in order:
+        if name not in n:
+            continue
+        lo = bisect.bisect_left(starts, a - longest)
+        for m, c, d in order[lo:bisect.bisect_left(starts, b)]:
+            if m != n and d > a:
+                key = m[:60]
+                with_ms[key] = with_ms.get(key, 0.0) + (min(b, d)
+                                                        - max(a, c)) / 1e3
+    return sorted(with_ms.items(), key=lambda kv: -kv[1])[:top]
+
+
+def phase_pipelined(smi: str) -> dict:
+    """Phase 18: `utils/benchprog.py:build(pipelined=True)` at the bench's
+    shapes (64 x 1024 ring of 84x84 uint8, batch 1024, S=64, K=1, Nature
+    CNN bf16): under cudnn.deterministic the capture, its graph read back
+    (S x K + 1 nodes of each gather, the forked ones beside other work),
+    8 replays against the eager body from clones, a replay under
+    set_sync_debug_mode("error"); then with default cuDNN the plain and
+    the pipelined superstep in one process, 5 windows each in turns
+    (transitions/s), and a profiled replay of each (busy share, the
+    side stream's work hidden under the convs and GEMMs); then the IQN
+    leg (S=8): its capture, graph and 2 replays against the eager body.
+    Returns the kernel nodes of each pipelined graph."""
+    import torch
+    from rltime_tpu_torch import bench
+    from rltime_tpu_torch.utils import benchprog
+    t_phase = time.perf_counter()
+    by_path = {}
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    beta = torch.full((), 0.4, device="cuda")
+    staged = None       # the dqn programs' chunks, kept for the rates
+    try:
+        for tag, kw, replays in (("dqn", {}, PIPELINED_REPLAYS),
+                                 ("iqn", PIPELINED_IQN, 2)):
+            leaves = []
+            t0 = time.perf_counter()
+            p = _recording_build(leaves, pipelined=True, **kw)
+            chunks = p.stacked(50)
+            if staged is None:
+                staged = chunks
+            name = f"benchprog {tag} pipelined (one replay)"
+            by_path[name] = _pipelined_capture(p, leaves, beta, chunks,
+                                               f"{tag}_pipelined")
+            t1 = time.perf_counter()
+            worst = _pipelined_parity(p, leaves, beta, chunks, replays,
+                                      f"pipelined {tag}")
+            print(f"pipelined bench superstep, {tag} (E={p.E}, T={p.T}, "
+                  f"L={p.L}, batch {p.batch}, S={p.S}, K={p.K}, Nature CNN "
+                  f"bf16): {replays} replays == the eager body from clones "
+                  f"({p.S * p.K} updates' sampled leaves each, tree, cursor "
+                  f"{p.rstate.cursor.item()}, counter "
+                  f"{p.tstate.counter.item()}, rings, metrics, params: max "
+                  f"abs difference {worst}); build, warm-ups and capture "
+                  f"{t1 - t0:.1f} s, the replays against the eager body "
+                  f"{time.perf_counter() - t1:.1f} s  [{smi}]", flush=True)
+            if tag == "dqn":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    _, _, m = p.superstep(p.tstate, p.rstate, beta, chunks)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                check(math.isfinite(m["loss"].item()), "pipelined: loss")
+                print("pipelined bench superstep: a replay under "
+                      "set_sync_debug_mode('error'): 0 host syncs",
+                      flush=True)
+            del p, leaves
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic = deterministic
+    # the rates, default cuDNN as the bench: both programs in this process
+    # (the rate does not depend on what the chunks hold: one set serves)
+    progs = {"plain": benchprog.build(device="cuda"),
+             "pipelined": benchprog.build(device="cuda", pipelined=True)}
+    for p in progs.values():
+        for _ in range(p.graph.WARMUP + 1):
+            _, _, m = p.superstep(p.tstate, p.rstate, beta, staged)
+        m["loss"].item()
+    seconds = {tag: [] for tag in progs}
+    for w in range(bench.WINDOWS):
+        for tag in (("plain", "pipelined") if w % 2 == 0
+                    else ("pipelined", "plain")):
+            p = progs[tag]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(bench.DISPATCHES):
+                _, _, m = p.superstep(p.tstate, p.rstate, beta, staged)
+            m["loss"].item()
+            seconds[tag].append(time.perf_counter() - t0)
+    res = {}
+    for tag, p in progs.items():
+        tx = bench.DISPATCHES * p.S * p.K * p.tx_per_update
+        rates = [tx / s for s in seconds[tag]]
+        wall, spans = kernel_spans(
+            lambda: p.superstep(p.tstate, p.rstate, beta, staged)[2][
+                "loss"].item())
+        wall *= 1e3
+        split = overlap_split(spans)
+        res[tag] = dict(rate=statistics.median(rates), rates=rates,
+                        wall_ms=wall, **split)
+        print(f"{tag} bench superstep (default cuDNN; {bench.WINDOWS} "
+              f"windows of {bench.DISPATCHES} dispatches, in turns with the "
+              f"other): {res[tag]['rate']:.1f} transitions/s (windows "
+              f"{[round(x, 1) for x in rates]}), "
+              f"{1e3 * p.tx_per_update / res[tag]['rate']:.4f} ms/update; a "
+              f"profiled replay: device busy {split['busy_ms']:.3f} of "
+              f"{wall:.3f} ms ({split['busy_ms'] / wall:.1%}), two or more "
+              f"kernels at once {split['concurrent_ms']:.3f} ms; inside the "
+              f"convs' and GEMMs' spans: K2 {split['k2_hidden_ms']:.4f} of "
+              f"{split['k2_ms']:.4f} ms, K1 {split['k1_hidden_ms']:.4f} of "
+              f"{split['k1_ms']:.4f} ms, other kernels (the sampler, the "
+              f"buffer copies) {split['other_hidden_ms']:.4f} ms; K2 ran "
+              f"beside {[(n, round(ms, 4)) for n, ms in split['k2_beside']]}"
+              f"  [{smi}]", flush=True)
+    gain = res["pipelined"]["rate"] / res["plain"]["rate"] - 1
+    print(f"pipelined against plain, medians in one process: "
+          f"{gain:+.2%} transitions/s  [{smi}]", flush=True)
+    del progs, staged, p, m
+    torch.cuda.empty_cache()
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return by_path
 
 
@@ -3099,6 +3450,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_act_graphs(smi)
     bench_launches = phase_bench_superstep(smi)
+    bench_launches.update(phase_pipelined(smi))
     phase_small_parity()
     phase_fused_parity()
     phase_fused_parity(interleave=True)

@@ -14,7 +14,12 @@ the device; metrics come back as device scalars, read only when the
 trainer logs.
 
 PyTorch runs eagerly, so JAX's `lax.scan` over K updates is a plain
-loop (`make_insert_and_update_step`). The update mutates the model,
+loop (`make_insert_and_update_step`, `make_multi_update_step`). The
+update splits into `sample_phase` and `apply_phase`, as the JAX
+version's does, for the pipelined step
+(`make_pipelined_insert_and_update_step`), which on the card samples
+and gathers the next batch on a side stream while the current one
+trains. The update mutates the model,
 optimizer and replay state in place and returns them for symmetry with
 the JAX API. The same update can be captured into a CUDA graph
 (`utils/benchprog.py`, the trainers): with a device counter
@@ -40,6 +45,7 @@ from rltime_tpu_torch.history.replay import (
 )
 from rltime_tpu_torch.models.policy import ModelConfig, QPolicy
 from rltime_tpu_torch.ops import losses, returns
+from rltime_tpu_torch.utils.graphs import SideStream
 from rltime_tpu_torch.utils.prng import make_generator
 
 
@@ -69,6 +75,11 @@ class AlgoConfig:
     # way: the same values (tests/test_torch_benchprog.py holds the
     # loss and targets with the flag on against the JAX package's).
     batched_next_forward: bool = False
+    # The JAX version puts an optimization_barrier between the obs
+    # gather and the convs, so that XLA keeps the gather a kernel of its
+    # own. Here the gathers are kernels of their own and finish, in
+    # stream order, before the convs read them: the flag changes no
+    # value and no launch.
     gather_barrier: bool = False
     num_tau: int = 64
     num_tau_prime: int = 64
@@ -85,10 +96,6 @@ class AlgoConfig:
             raise ValueError(f"unknown algo {self.algo!r}")
         if self.optimizer not in ("adam", "rmsprop"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
-        if self.gather_barrier:
-            raise ValueError("algo.gather_barrier is an XLA scheduling knob "
-                             "with no PyTorch meaning (ROADMAP.md: not to "
-                             "port)")
 
 
 @dataclasses.dataclass
@@ -383,7 +390,8 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
     `replay_sample_indices`) and, for IQN, `taus` the three tau sets
     dict(taus (B, num_tau), taus_prime (B, num_tau_prime), taus_policy
     (B, num_tau_policy)) (tests); otherwise both come from
-    train_state.generator, the sampler's draws first."""
+    train_state.generator, the sampler's draws first. The update is
+    `sample_phase` then `apply_phase`, attached to it as attributes."""
     cfg = algo_cfg
     B = cfg.batch_size
     if cfg.use_lambda and cfg.algo == "iqn":
@@ -454,26 +462,46 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
             kappa=cfg.huber_kappa)
         return loss, td_abs, torch.mean(q_sa.detach())
 
-    def update_step(state: TrainState, rstate: ReplayState, beta,
-                    u: Optional[torch.Tensor] = None,
-                    taus: Optional[Dict[str, torch.Tensor]] = None):
-        idx = sample_indices(replay_cfg, rstate, B, beta, state.generator, u)
+    def sample_phase(generator: torch.Generator, rstate: ReplayState,
+                     beta, u: Optional[torch.Tensor] = None):
+        """Everything of an update that only READS the replay state: the
+        PER (or uniform) sample with its IS weights from `generator` (or
+        `u`), both frame stacks (K2), the strips and the action (K1) and
+        the truncation mask. Returns (idx, batch); batch["weight"] is the
+        IS weight times batch["trunc_ok"]. Split out so that a pipelined
+        caller can gather the next batch while this one trains
+        (`make_pipelined_insert_and_update_step`). No cuBLAS call: the
+        pipelined step runs it on a side stream."""
+        idx = sample_indices(replay_cfg, rstate, B, beta, generator, u)
         batch = _gather_batch(replay_cfg, rstate, idx["env"], idx["col"],
                               frame_stack, cfg.n_step, flatten,
                               lambda_mode=lambda_mode,
                               channels_last=channels_last)
-        trunc_ok = batch["trunc_ok"]
         if not cfg.exact_truncation:
-            trunc_ok = torch.ones_like(trunc_ok)
-        weight = idx["weight"] * trunc_ok
+            batch["trunc_ok"] = torch.ones_like(batch["trunc_ok"])
+        batch["weight"] = idx["weight"] * batch["trunc_ok"]
+        return idx, batch
 
+    def apply_phase(state: TrainState, rstate: ReplayState, idx, batch,
+                    taus: Optional[Dict[str, torch.Tensor]] = None,
+                    join=None):
+        """The loss on an already-gathered batch, backward, clip, the
+        optimizer step, the count and target sync, and the priority
+        write-back, in place. `taus` injects IQN's draws (else from
+        state.generator). `join()`, where given, runs just before the
+        write-back (the pipelined step's join: the side stream's sample
+        reads the tree that the write-back replaces)."""
+        trunc_ok = batch["trunc_ok"]
         if cfg.algo == "iqn":
-            loss, td_abs, q_metric = iqn_loss(state, batch, weight, taus)
+            loss, td_abs, q_metric = iqn_loss(state, batch, batch["weight"],
+                                              taus)
         else:
-            loss, td_abs, q_metric = dqn_loss(state, batch, weight)
+            loss, td_abs, q_metric = dqn_loss(state, batch, batch["weight"])
         g_norm = apply_gradients(cfg, state, loss, mesh)
 
         td_abs = td_abs.detach()
+        if join is not None:
+            join()
         replay_update_priorities(replay_cfg, rstate, idx["leaf"], td_abs,
                                  keep=trunc_ok)
         metrics = dict(loss=loss.detach(), q=q_metric,
@@ -481,12 +509,28 @@ def make_update_step(algo_cfg: AlgoConfig, replay_cfg: ReplayConfig,
                        grad_norm=g_norm,
                        mean_weight=torch.mean(idx["weight"]))
         if cfg.debug_outputs:
-            metrics["debug_leaf"] = idx["leaf"]
+            # copies: a pipelined step's batch buffers are written again
+            # two updates later
+            metrics["debug_leaf"] = idx["leaf"].clone()
             metrics["debug_td"] = td_abs
-            metrics["debug_action"] = batch["action"]
+            metrics["debug_action"] = batch["action"].clone()
         return state, rstate, metrics
 
+    def update_step(state: TrainState, rstate: ReplayState, beta,
+                    u: Optional[torch.Tensor] = None,
+                    taus: Optional[Dict[str, torch.Tensor]] = None):
+        idx, batch = sample_phase(state.generator, rstate, beta, u)
+        return apply_phase(state, rstate, idx, batch, taus)
+
+    update_step.sample_phase = sample_phase
+    update_step.apply_phase = apply_phase
     return update_step
+
+
+def _default_insert(replay_cfg: ReplayConfig):
+    def insert(rstate, chunk):
+        return replay_insert_at_cursor(replay_cfg, rstate, chunk)
+    return insert
 
 
 def make_insert_and_update_step(replay_cfg: ReplayConfig, update_step,
@@ -499,16 +543,109 @@ def make_insert_and_update_step(replay_cfg: ReplayConfig, update_step,
     `taus`), injects each update's random draws (tests). `insert(state,
     chunk)` replaces that insert (the sharded insert of
     `parallel/mesh.py`)."""
-    if insert is None:
-        def insert(rstate, chunk):
-            return replay_insert_at_cursor(replay_cfg, rstate, chunk)
+    insert = insert or _default_insert(replay_cfg)
+    multi = make_multi_update_step(update_step, num_updates)
 
     def fused(state, rstate, chunk, beta, draws=None):
+        return multi(state, insert(rstate, chunk), beta, draws)
+
+    return fused
+
+
+def make_pipelined_insert_and_update_step(replay_cfg: ReplayConfig,
+                                          update_step, num_updates: int,
+                                          insert=None):
+    """{chunk insert + K updates} with software-pipelined sampling: each
+    update trains on the batch sampled and gathered during the previous
+    update, and samples and gathers the next one from the current state.
+
+    Not a schedule of the same values but another algorithm, as in the
+    JAX version: update k+1's PER sample reads the tree BEFORE update
+    k's priority write-back (priorities one update stale, the async-PER
+    relaxation of Ape-X), and the batch pending across a chunk boundary
+    was sampled and gathered before that chunk's insert (a valid
+    snapshot; write-backs to leaves the insert killed are dropped by
+    `replay_update_priorities`, the reference's rule). Needs an update
+    with `sample_phase` and `apply_phase` (the feed-forward learner's;
+    the R2D2 update has none).
+
+    The pending batch lives in two buffers that the step owns, made at
+    its first sample and alternating by update parity. On the card each
+    update forks the next batch's `sample_phase` onto one side stream
+    (`utils/graphs.py:SideStream`, made once) into the free buffer,
+    while the current stream runs `apply_phase`'s forward, backward and
+    optimizer step on the other; the current stream joins the side
+    stream before the priority write-back (it replaces the tree the
+    sample reads), so every fork is joined before the next update and
+    before the next chunk's insert (it writes the rings the gathers
+    read). A CUDA graph that captures the step records both branches.
+    On the CPU the same body runs in program order.
+
+    Returns (prime, fused):
+      prime(state, rstate, beta, u=None) -> (state, pending)
+      fused(state, rstate, pending, chunk, beta, draws=None)
+          -> (state, rstate, pending, metrics of the LAST update)
+    `u` injects the first sample's draws; `draws`, K keyword dicts,
+    injects each update's: `u` for the batch it samples, `taus` for the
+    one it trains on (the JAX version's key order: prime splits
+    (key, skey, tkey); update k splits (key, skey, tkey') and trains
+    under the previous tkey). Without them every draw comes from
+    state.generator in program order: a sample's uniforms, then the
+    update's taus."""
+    sample = getattr(update_step, "sample_phase", None)
+    if sample is None:
+        raise ValueError("pipelined sampling needs an update with "
+                         "sample_phase and apply_phase (the feed-forward "
+                         "DQN/IQN update); the R2D2 update has none")
+    apply = update_step.apply_phase
+    insert = insert or _default_insert(replay_cfg)
+    slots = [None, None]        # the two pending-batch buffers
+    side = SideStream()
+
+    def sample_into(i, state, rstate, beta, u):
+        idx, batch = sample(state.generator, rstate, beta, u)
+        if slots[i] is None:
+            slots[i] = tuple({k: torch.empty_like(v) if torch.is_tensor(v)
+                              else v for k, v in d.items()}
+                             for d in (idx, batch))
+        for buf, d in zip(slots[i], (idx, batch)):
+            for k, v in d.items():
+                if torch.is_tensor(v):
+                    buf[k].copy_(v)
+                else:
+                    buf[k] = v
+        return slots[i]
+
+    def prime(state, rstate, beta, u=None):
+        return state, sample_into(0, state, rstate, beta, u)
+
+    def fused(state, rstate, pending, chunk, beta, draws=None):
         rstate = insert(rstate, chunk)
+        metrics = {}
+        for k in range(num_updates):
+            d = draws[k] if draws else {}
+            free = 1 if pending is slots[0] else 0
+            with side.fork(rstate.tree.device):
+                nxt = sample_into(free, state, rstate, beta, d.get("u"))
+            state, rstate, metrics = apply(state, rstate, *pending,
+                                           taus=d.get("taus"),
+                                           join=side.join)
+            pending = nxt
+        return state, rstate, pending, metrics
+
+    return prime, fused
+
+
+def make_multi_update_step(update_step, num_updates: int):
+    """K update steps with no insert; returns the LAST step's metrics
+    (the JAX version's `lax.scan` over K updates is a plain loop).
+    `draws`, a list of K keyword dicts (`u`, `taus`), injects each
+    update's random draws (tests)."""
+    def multi(state, rstate, beta, draws=None):
         metrics = {}
         for k in range(num_updates):
             state, rstate, metrics = update_step(
                 state, rstate, beta, **(draws[k] if draws else {}))
         return state, rstate, metrics
 
-    return fused
+    return multi

@@ -21,7 +21,9 @@ insert and the sampler read the cursor on the device
 capturable on the card, and the sampler's generator is registered with
 the graph.
 `eager_superstep` is the same body run op by op: the CPU route, and on
-the card what the graph is held against.
+the card what the graph is held against. `build(pipelined=True)` is the
+JAX version's pipelined program: the next batch sampled while the
+current one trains, on a side stream inside the same graph on the card.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from rltime_tpu_torch.history.replay import (
 )
 from rltime_tpu_torch.models.policy import ModelConfig
 from rltime_tpu_torch.training.learner import (
-    AlgoConfig, TrainState, make_insert_and_update_step, make_train_state,
+    AlgoConfig, TrainState, make_insert_and_update_step,
+    make_pipelined_insert_and_update_step, make_train_state,
     make_update_step, use_device_counter,
 )
 from rltime_tpu_torch.training.r2d2 import make_r2d2_update_step, r2d2_horizon
@@ -64,17 +67,27 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
 
     The arguments are the JAX version's: the same configs, the same
     fields, the same seeded numpy draws in the same order, so the
-    inserted bytes are equal bit for bit. `unroll` and `pipelined` are
-    XLA scheduling knobs and raise. On the card `superstep(tstate,
+    inserted bytes are equal bit for bit. On the card `superstep(tstate,
     rstate, beta, chunks)` takes the namespace's own states and is one
     graph replay after two eager warm-up calls (the third call
     captures); it updates both states in place, adds what it ran to
     their host counts (`updates`, `t`) and returns the last update's
-    metrics (the graph's tensors, overwritten by the next replay)."""
-    if unroll != 1 or pipelined:
-        raise ValueError(
-            "unroll and pipelined are XLA scheduling knobs of the JAX "
-            "bench, not ported (ROADMAP.md queue 1 item 6)")
+    metrics (the graph's tensors, overwritten by the next replay).
+
+    `pipelined` (DQN and IQN; R2D2 raises, as in the JAX version): each
+    update trains on the batch sampled during the previous one
+    (`learner.make_pipelined_insert_and_update_step`: priorities one
+    update stale), re-primed once per dispatch, so a dispatch samples
+    and gathers S x K + 1 times; on the card the next batch's sample and
+    gathers run on a side stream inside the same graph. `unroll` (>= 1)
+    is the JAX version's chunk-scan unroll, an XLA schedule of the same
+    values: the graph already holds all S chunks as straight-line work,
+    so it changes nothing here."""
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
+    if pipelined and algo == "r2d2":
+        raise ValueError("pipelined is a feed-forward learner experiment "
+                         "(DQN, IQN); the R2D2 update does not split")
     dev = resolve_device(device)
     E_, L_ = num_envs, chunk_len
     head = "dueling"
@@ -142,21 +155,36 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
     else:
         update = make_update_step(acfg, rcfg, F, False,
                                   channels_last=channels_last)
-    insert_update = make_insert_and_update_step(
-        rcfg, update, k,
-        insert=lambda rs, ck: replay_insert_device(rcfg, rs, ck))
+    def insert(rs, ck):
+        return replay_insert_device(rcfg, rs, ck)
+
+    if pipelined:
+        prime, insert_update_p = make_pipelined_insert_and_update_step(
+            rcfg, update, k, insert=insert)
+    else:
+        insert_update = make_insert_and_update_step(rcfg, update, k,
+                                                    insert=insert)
 
     def body(tstate, rstate, beta, chunks, draws=None):
         """S x (device-cursor insert of chunk s + K updates), in place
         (the next replay reads the tree and max_priority from the
         tensors this one started from). `draws[s]` (tests) injects chunk
-        s's K updates' draws."""
+        s's K updates' draws; pipelined, `draws` is (the prime's `u`,
+        that list)."""
         metrics = {}
         with replay_in_place(rstate):
+            if pipelined:
+                u, draws = draws if draws else (None, None)
+                tstate, pending = prime(tstate, rstate, beta, u)
             for s in range(supersteps):
                 ck = {name: x[s] for name, x in chunks.items()}
-                tstate, rstate, metrics = insert_update(
-                    tstate, rstate, ck, beta, draws[s] if draws else None)
+                d = draws[s] if draws else None
+                if pipelined:
+                    tstate, rstate, pending, metrics = insert_update_p(
+                        tstate, rstate, pending, ck, beta, d)
+                else:
+                    tstate, rstate, metrics = insert_update(
+                        tstate, rstate, ck, beta, d)
         return metrics
 
     def _count(tstate, rstate):

@@ -57,10 +57,29 @@ that outlives it, read no host value that changes between calls, and
 never sync (`torch.cuda.set_sync_debug_mode("error")` shows one). There
 is no capture on the CPU: the CPU route calls the step itself.
 
-A caller that reads the graph back (`kernel_counts`, for the checks on
-the card) sets `debug = True` before the capturing call, on the step or
-on the class (for steps that an entry point builds); only then is the
-captured `cudaGraph_t` kept beside its executable.
+Two streams inside one graph (`SideStream`; the pipelined learner step
+of `training/learner.py` is the one user). A step may fork work that
+only reads state onto one side stream, made once, so that it overlaps
+the work that follows on the current stream; the capture records the
+fork and the join as edges between two branches. The rule:
+  * the fork waits on `torch.cuda.current_stream()`, never the default
+    stream (`GraphedStep` runs its warm-ups on a stream of its own);
+  * what the side stream writes goes into buffers made before the
+    capture and kept by the step, so no tensor crosses between the two
+    streams' allocator pools;
+  * the current stream joins the side stream before it writes anything
+    the side stream reads, or frees a tensor the side stream reads, and
+    before the step ends (a capture with a branch left unjoined fails);
+  * nothing on the side stream calls cuBLAS: its workspace is per
+    thread and stream, and a captured matmul keeps its address (below).
+On the CPU there are no streams and the same body runs in program
+order, which is what the CPU tests hold against the JAX package.
+
+A caller that reads the graph back (`kernel_counts`, and
+`concurrent_nodes` on the dump it writes, for the checks on the card)
+sets `debug = True` before the capturing call, on the step or on the
+class (for steps that an entry point builds); only then is the captured
+`cudaGraph_t` kept beside its executable.
 """
 from __future__ import annotations
 
@@ -178,6 +197,38 @@ class GraphedStep:
         return {name: sum(name in label for label in nodes) for name in names}
 
 
+class SideStream:
+    """One side stream for read-only work that overlaps the current
+    stream's (the rule is in the module doc). `fork(device)` runs its
+    block on the side stream after all work already queued on the
+    current stream; `join()` makes the current stream wait for what was
+    forked, and does nothing when nothing was forked since the last
+    join. On the CPU both do nothing. The stream is made at the first
+    fork onto a card and kept."""
+
+    def __init__(self):
+        self.stream = None
+        self.pending = False    # forked work the current stream has not joined
+
+    @contextlib.contextmanager
+    def fork(self, device: torch.device):
+        if device.type != "cuda":
+            yield
+            return
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        self.stream.wait_stream(torch.cuda.current_stream(device))
+        self.pending = True
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def join(self) -> None:
+        if self.pending:
+            torch.cuda.current_stream(self.stream.device).wait_stream(
+                self.stream)
+            self.pending = False
+
+
 def _indexed(device: torch.device) -> torch.device:
     """`cuda` as `cuda:<current device>`, so two names of one card agree."""
     if device.type == "cuda" and device.index is None:
@@ -188,3 +239,51 @@ def _indexed(device: torch.device) -> torch.device:
 def _node_labels(dot: str) -> list:
     """The label of every node of a Graphviz dump of a CUDA graph."""
     return re.findall(r'\blabel="((?:[^"\\]|\\.)*)"', dot)
+
+
+_NODE = re.compile(r'"([^"]+)"\s*\[(?:[^\]"]|"(?:[^"\\]|\\.)*")*?'
+                   r'\blabel="((?:[^"\\]|\\.)*)"')
+_EDGE = re.compile(r'"([^"]+)"\s*->\s*"([^"]+)"')
+
+
+def _nodes_and_edges(dot: str):
+    """({node id: label}, [(from, to)]) of a Graphviz dump of a CUDA
+    graph."""
+    labels = {m.group(1): m.group(2) for m in _NODE.finditer(dot)}
+    edges = [e for e in _EDGE.findall(dot)
+             if e[0] in labels and e[1] in labels]
+    return labels, edges
+
+
+def concurrent_nodes(dot: str, names: Sequence[str]) -> Dict[str, int]:
+    """How many nodes of a Graphviz dump of a CUDA graph whose label
+    contains each of `names` have some other node on a parallel branch:
+    neither its ancestor nor its descendant. A capture on one stream is
+    a chain and has none; a node counted here runs beside other work (a
+    side stream's fork)."""
+    labels, edges = _nodes_and_edges(dot)
+    nodes = set(labels)
+    children: Dict[str, list] = {n: [] for n in labels}
+    parents: Dict[str, list] = {n: [] for n in labels}
+    for a, b in edges:
+        children[a].append(b)
+        parents[b].append(a)
+    out = {}
+    for name in names:
+        count = 0
+        for node in (n for n in nodes if name in labels[n]):
+            ordered = _reach(node, children) | _reach(node, parents) | {node}
+            count += bool(nodes - ordered)
+        out[name] = count
+    return out
+
+
+def _reach(node: str, step: Dict[str, list]) -> set:
+    """Every node reachable from `node` along `step` (not `node`)."""
+    seen, todo = set(), list(step[node])
+    while todo:
+        n = todo.pop()
+        if n not in seen:
+            seen.add(n)
+            todo.extend(step[n])
+    return seen

@@ -416,12 +416,6 @@ def test_global_norm_depends_on_the_values_only():
         [jnp.asarray(v) for v in values])), rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(unroll=2), dict(pipelined=True)])
-def test_xla_knobs_raise(kw):
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        tbenchprog.build(device="cpu", **kw)
-
-
 def test_capture_refuses_the_cpu():
     with pytest.raises(RuntimeError, match="on the CPU call the step"):
         GraphedStep(lambda x: x, [torch.zeros(1)])

@@ -254,6 +254,57 @@ def test_captured_superstep_equals_eager_body(cuda_device, algo, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["dqn", "iqn"])
+def test_captured_pipelined_superstep_equals_eager_body(cuda_device, algo,
+                                                        monkeypatch,
+                                                        tmp_path):
+    """`utils/benchprog.py` pipelined at a small size: one replay of
+    prime + S=2 x (insert + K=2 updates) against the same body op by op
+    from a clone of the same state, every carried tensor and the metrics
+    equal (cuDNN deterministic); the graph holds S x K + 1 nodes of each
+    gather, and each of them but the prime's sits on a branch beside
+    other work: the side stream the next batch is gathered on."""
+    from rltime_tpu_torch.utils import benchprog
+    monkeypatch.setattr(benchprog, "T", 64)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    p = benchprog.build(device="cuda", warm_chunks=4, batch=8, k=2,
+                        supersteps=2, num_envs=4, chunk_len=8, algo=algo,
+                        pipelined=True, debug_outputs=True)
+    p.graph.debug = True                      # keep the graph to read
+    beta = torch.full((), 0.5, device=cuda_device)
+    for i in range(p.graph.WARMUP + 1):       # eager warm-ups, then capture
+        p.superstep(p.tstate, p.rstate, beta, p.stacked(10 + 2 * i))
+    assert p.graph.graph is not None
+    chunks = p.stacked(100)
+    ts, rs = benchprog.clone_states(p.tstate, p.rstate)
+    _, _, graph_m = p.superstep(p.tstate, p.rstate, beta, chunks)
+    graph_m = {k: v.clone() for k, v in graph_m.items()}
+    _, _, eager_m = p.eager_superstep(ts, rs, beta, chunks)
+    torch.cuda.synchronize()
+    for a, b in ((p.rstate.tree, rs.tree), (p.rstate.cursor, rs.cursor),
+                 (p.rstate.max_priority, rs.max_priority),
+                 (p.tstate.counter, ts.counter)):
+        assert torch.equal(a, b)
+    for name, ring in p.rstate.storage.items():
+        assert torch.equal(ring, rs.storage[name]), name
+    for k, v in graph_m.items():
+        assert torch.equal(v, eager_m[k]), k
+    for net, other in ((p.tstate.model, ts.model),
+                       (p.tstate.target, ts.target)):
+        for (name, a), b in zip(net.state_dict().items(),
+                                other.state_dict().values()):
+            assert torch.equal(a, b), name
+    from rltime_tpu_torch.utils.graphs import concurrent_nodes
+    names = ("union_gather_kernel", "window_gather_kernel")
+    updates = p.S * p.K
+    dot = tmp_path / "graph.dot"
+    assert p.graph.kernel_counts(names, str(dot)) == {
+        name: updates + 1 for name in names}
+    assert concurrent_nodes(dot.read_text(), names) == {
+        name: updates for name in names}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shapes", [
     [(16, 4, 3, 3), (16,), (128, 1024), (128,), (256, 128), (256,), (1, 256),
      (1,), (256, 128), (256,), (3, 256), (3,)],                 # MinAtar net

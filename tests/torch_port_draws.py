@@ -146,14 +146,50 @@ def update_draws(key, B, num_tau=0, num_tau_prime=0, num_tau_policy=0):
     (training/learner.py:374, :289-297): the PER uniforms `u` and, for
     IQN (num_tau > 0), the three tau sets."""
     _, skey, tkey = jax.random.split(key, 3)
-    d = dict(u=torch.from_numpy(np.array(jax.random.uniform(skey, (B,)))))
+    d = dict(u=_uniforms(skey, B))
     if num_tau:
-        k1, k2, k3 = jax.random.split(tkey, 3)
-        d["taus"] = to_torch(dict(
-            taus=jax.random.uniform(k1, (B, num_tau)),
-            taus_prime=jax.random.uniform(k2, (B, num_tau_prime)),
-            taus_policy=jax.random.uniform(k3, (B, num_tau_policy))))
+        d["taus"] = _iqn_taus(tkey, B, num_tau, num_tau_prime,
+                              num_tau_policy)
     return d
+
+
+def _uniforms(skey, B):
+    """The dense sampler's B uniforms from a sample key."""
+    return torch.from_numpy(np.array(jax.random.uniform(skey, (B,))))
+
+
+def _iqn_taus(tkey, B, num_tau, num_tau_prime, num_tau_policy):
+    """IQN's three tau sets from a tau key (training/learner.py:289-297)."""
+    k1, k2, k3 = jax.random.split(tkey, 3)
+    return to_torch(dict(
+        taus=jax.random.uniform(k1, (B, num_tau)),
+        taus_prime=jax.random.uniform(k2, (B, num_tau_prime)),
+        taus_policy=jax.random.uniform(k3, (B, num_tau_policy))))
+
+
+def pipelined_draws(key, B, chunks, K, num_tau=0, num_tau_prime=0,
+                    num_tau_policy=0):
+    """The draws of a pipelined prime and `chunks` x K updates from the
+    state key the prime receives (training/learner.py:459-478): the
+    prime splits (key, skey, tkey) and samples from skey; each update
+    splits (key, skey, tkey'), samples the next batch from skey and
+    trains under the previous tkey. Returns (the advanced key, the
+    prime's `u`, chunks lists of K dicts of `u` and, for IQN, `taus`)."""
+    key, skey, tkey = jax.random.split(key, 3)
+    prime_u = _uniforms(skey, B)
+    out = []
+    for _ in range(chunks):
+        row = []
+        for _ in range(K):
+            key, skey, tkey_next = jax.random.split(key, 3)
+            d = dict(u=_uniforms(skey, B))
+            if num_tau:
+                d["taus"] = _iqn_taus(tkey, B, num_tau, num_tau_prime,
+                                      num_tau_policy)
+            row.append(d)
+            tkey = tkey_next
+        out.append(row)
+    return key, prime_u, out
 
 
 def uniform_update_draws(key, B, span, E):
